@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--config llama3-8b-d4] [--prompt 128] [--gen 32]
-                          [--seed 0]
+                          [--long-prompt 2048] [--seed 0]
 
 Phases, one JSON line each (any failure exits non-zero; no phase is
 caught):
@@ -10,22 +10,27 @@ caught):
 1. env: the card, torch/CUDA versions, and the build of every kernel
    source under ``distributed_llm_dissemination_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together).
-2. kernel vs plain: the block-attention kernel against its plain PyTorch
-   version and an f64 oracle, at the JAX package's test offsets, ragged
-   and decode shapes, and the serving shapes of phase 3; CUDA-event times
-   of the kernel, the plain version and one library call
-   (``scaled_dot_product_attention``, a yardstick the port never calls),
-   beside the least time the card could take (``bound_ms``).
+2. kernel vs plain: each block-attention kernel (split-KV decode,
+   tensor-core prefill, scalar f32) against its plain PyTorch version and
+   an f64 oracle on every case shape it accepts, then the serving shapes
+   of a ``--prompt`` and of a ``--long-prompt`` serve.  Device times of
+   the kernel, the plain version and one library call
+   (``scaled_dot_product_attention``, a yardstick the port never calls)
+   come from CUDA-graph replay of many calls, beside the least time the
+   card could take (``bound_ms``); ``host_us_per_call`` is what a call
+   costs the host.
 3. main path at ``--config``: seeded blobs fabricated into host memory,
    delivered as shuffled 8-way byte-range fragments (plus a duplicate)
    from 4 writer threads into ``ShardedLayerIngest``; each finished blob
    goes to a ``StreamingBootStager``; then ``boot_from_layers`` boots and
-   generates ``--gen`` tokens.  The attention launch count is zeroed just
-   before and read just after.
+   generates ``--gen`` tokens.  The attention launch counts, in all and
+   per kernel, are zeroed just before and read just after.  Then warm
+   serving times, and a warm ``--long-prompt`` serve.
 4. on-card parity: the boot's logits and 16 greedy tokens again with the
    attention forced through the plain version on the same tensors.
-5. profile: device time by kernel and the device's idle share over a
-   warm ``generate`` call (``torch.profiler``).
+5. profile: device time by kernel, each attention kernel's time per call,
+   attention's share of device time and the device's idle share over a
+   warm ``generate`` call at each prompt length (``torch.profiler``).
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and, last, the ``{"ok": true, ...}`` line.
@@ -47,11 +52,17 @@ from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
-KERNEL_SOURCE = "distributed_llm_dissemination_tpu_torch/csrc/block_attention.cu"
+CSRC = "distributed_llm_dissemination_tpu_torch/csrc/"
 KERNEL_REPLACES = "distributed_llm_dissemination_tpu/ops/flash_attention.py:128"
+# Kernel name -> the CUDA kernels (profiler names) it launches.
+DEVICE_KERNELS = {"decode": ("decode_split_kernel", "decode_merge_kernel"),
+                  "prefill": ("prefill_wgmma_kernel",),
+                  "scalar": ("block_attention_kernel",)}
 PARTS = 8  # fragments per blob, as bench.py
 WRITERS = 4
 REPEATS = 5  # warm serving samples
+LONG_REPEATS = 3  # warm long-prompt serving samples
+TIMING = "CUDA-graph replay, mean device ms per call"
 
 
 def emit(phase: str, **fields) -> None:
@@ -72,19 +83,48 @@ def nvidia_smi() -> str:
 
 # ----------------------------------------------------------------- timing
 
-def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+def time_graph(fn, calls: int = 10, replays: int = 3) -> float:
+    """Mean device milliseconds per call of ``fn``: ``calls`` calls are
+    captured into one CUDA graph and the graph is replayed ``replays``
+    times between two CUDA events, so the host's cost per call is not in
+    the number (it would be, timing back-to-back eager calls)."""
     import torch
 
-    for _ in range(warmup):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     start, end = torch.cuda.Event(True), torch.cuda.Event(True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(replays):
+        graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    return ms
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host microseconds per call of ``fn`` (enqueue only, no sync)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def attention_bound(b, kvh, g, sq, t, hd, q_off, k_off, dtype_name):
@@ -109,7 +149,7 @@ def attention_bound(b, kvh, g, sq, t, hd, q_off, k_off, dtype_name):
 
 
 def oracle_f64(qg, k, v, q_off, k_off):
-    """Normalised causal attention and (m, l) in float64."""
+    """Unnormalised causal attention (pv, m, l) in float64."""
     import torch
 
     q64, k64, v64 = qg.double(), k.double(), v.double()
@@ -118,33 +158,41 @@ def oracle_f64(qg, k, v, q_off, k_off):
     vis = ((q_off + torch.arange(sq, device=qg.device))[:, None]
            >= (k_off + torch.arange(t, device=qg.device))[None, :])
     s = torch.where(vis, s, torch.full_like(s, -1e30))
-    m = s.amax(-1)
+    m = s.amax(-1) if t else torch.full(qg.shape[:4], -1e30, device=qg.device,
+                                        dtype=torch.float64)
     p = torch.where((m > -5e29)[..., None], torch.exp(s - m[..., None]),
                     torch.zeros_like(s))
     l = p.sum(-1)
     return torch.einsum("bkgst,bkth->bkgsh", p, v64), m, l
 
 
-def library_call(qg, k, v, q_off, k_off):
-    """One PyTorch call computing the normalised output (yardstick)."""
+def library_fn(qg, k, v, q_off, k_off):
+    """One PyTorch call computing the normalised output (yardstick).  The
+    mask is built here, outside the returned call, so a timing of the
+    call times ``scaled_dot_product_attention`` alone."""
     import torch
     import torch.nn.functional as F
 
     b, kvh, g, sq, hd = qg.shape
     q = qg.reshape(b, kvh * g, sq, hd)
     if q_off == k_off == 0 and sq == k.shape[2]:
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              enable_gqa=True)
+        return lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)
     vis = ((q_off + torch.arange(sq, device=qg.device))[:, None]
            >= (k_off + torch.arange(k.shape[2], device=qg.device))[None, :])
-    return F.scaled_dot_product_attention(q, k, v, attn_mask=vis,
-                                          enable_gqa=True)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=vis,
+                                                  enable_gqa=True)
+
+
+def _row_max_err(a, b):
+    return (a.double() - b.double()).abs().amax(-1)
 
 
 def attention_case(fa, b, kvh, g, sq, t, hd, q_off, k_off, dtype, seed,
-                   iters=20):
-    """Phase-2 record for one shape: errors against the plain version and
-    the f64 oracle, and the three times beside the bound."""
+                   calls=10, host=False):
+    """Phase-2 record for one shape: which kernel served it, its errors
+    against the plain version and the f64 oracle (checked), and the three
+    device times beside the bound."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -153,63 +201,83 @@ def attention_case(fa, b, kvh, g, sq, t, hd, q_off, k_off, dtype, seed,
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     qg, k, v = rnd(b, kvh, g, sq, hd), rnd(b, kvh, t, hd), rnd(b, kvh, t, hd)
-    before = fa.launches
+    name = fa.kernel_for(sq, g, dtype)
+    before = dict(fa.launches_by_kernel)
     got = fa.block_attention(qg, k, v, q_off, k_off)
     torch.cuda.synchronize()
-    check(fa.launches == before + 1, "kernel launch not counted")
+    check(fa.launches_by_kernel[name] == before[name] + 1,
+          f"{name} kernel launch not counted")
     plain = fa.block_attention_ref(qg, k, v, q_off, k_off)
     oracle = oracle_f64(qg, k, v, q_off, k_off)
-    err_plain = [float((a - r).abs().max()) for a, r in zip(got, plain)]
+    # Tolerances.  m: 1e-4 (f32 rounding of a max).  l and pv: sums of up
+    # to t f32 terms of size <= 1 in another order, tol * max(1, max l).
+    # pv of the prefill kernel also carries its bf16 rounding of p, at
+    # most BF16_P_REL * l * max|v| per row (ops/flash_attention.py).
+    tol = 2e-3 if t > 1024 else 1e-3
+    lmax = max(1.0, float(plain[2].abs().max()))
+    pv_bound = torch.full_like(plain[2], tol * lmax, dtype=torch.float64)
+    if name == "prefill" and t:
+        pv_bound = pv_bound + (fa.BF16_P_REL * oracle[2]
+                               * float(v.float().abs().max()))
+    err_plain = [float(_row_max_err(got[0], plain[0]).max()),
+                 float((got[1] - plain[1]).abs().max()),
+                 float((got[2] - plain[2]).abs().max())]
     # Against the f64 oracle, m only where a key is visible: -1e30 itself
     # rounds differently in f32 and f64.
     seen = oracle[1] > -5e29
-    err_oracle = [float((got[0].double() - oracle[0]).abs().max()),
+    err_oracle = [float(_row_max_err(got[0], oracle[0]).max()),
                   float((got[1].double() - oracle[1])[seen].abs().max()
                         if bool(seen.any()) else 0.0),
                   float((got[2].double() - oracle[2]).abs().max())]
+    pv_ratio = float(torch.maximum(
+        _row_max_err(got[0], plain[0]) / pv_bound,
+        _row_max_err(got[0], oracle[0]) / pv_bound).max())
     live = got[2] > 0
-    out = got[0] / torch.where(live, got[2], torch.ones_like(got[2]))[..., None]
-    lib_err = None
+    lib_err, library_ms = None, None
     if bool(live.all()):
-        lib = library_call(qg, k, v, q_off, k_off)
-        lib_err = float((out.reshape(lib.shape) - lib.float()).abs().max())
+        lib = library_fn(qg, k, v, q_off, k_off)
+        out = got[0] / got[2][..., None]
+        ref = lib()
+        lib_err = float((out.reshape(ref.shape) - ref.float()).abs().max())
+        library_ms = time_graph(lib, calls)
     dtype_name = str(dtype).split(".")[-1]
     bound_ms, bound_by, flops, nbytes = attention_bound(
         b, kvh, g, sq, t, hd, q_off, k_off, dtype_name)
-    ms = time_cuda(lambda: fa.block_attention(qg, k, v, q_off, k_off), iters)
-    plain_ms = time_cuda(
-        lambda: fa.block_attention_ref(qg, k, v, q_off, k_off), iters)
-    library_ms = (time_cuda(lambda: library_call(qg, k, v, q_off, k_off),
-                            iters) if lib_err is not None else None)
-    tol = 2e-3 if t > 1024 else 1e-3
+    ms = time_graph(lambda: fa.block_attention(qg, k, v, q_off, k_off), calls)
+    plain_ms = time_graph(
+        lambda: fa.block_attention_ref(qg, k, v, q_off, k_off), calls)
     rec = {
+        "kernel": name,
         "shape": {"b": b, "kvh": kvh, "g": g, "sq": sq, "t": t, "hd": hd,
                   "q_off": q_off, "k_off": k_off, "dtype": dtype_name},
         "max_abs_err_vs_plain": dict(zip(("pv", "m", "l"), err_plain)),
         "max_abs_err_vs_f64": dict(zip(("pv", "m", "l"), err_oracle)),
+        "pv_err_over_bound": pv_ratio,
         "max_abs_err_library_vs_kernel_normalised": lib_err,
         "tolerance": tol,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "timing": TIMING,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "flops": flops, "bytes": nbytes,
     }
-    # Tolerance: pv/l sum up to t f32 terms of size ~1 in another order
-    # than the plain version; relative to l (up to t) this is ~1e-6.
-    check(err_plain[1] <= 1e-4, f"m disagrees {rec}")
-    check(err_plain[0] <= tol * max(1.0, float(plain[2].abs().max())),
-          f"pv disagrees {rec}")
-    check(err_plain[2] <= tol * max(1.0, float(plain[2].abs().max())),
+    if host:
+        rec["host_us_per_call"] = host_us_per_call(
+            lambda: fa.block_attention(qg, k, v, q_off, k_off))
+    check(err_plain[1] <= 1e-4 and err_oracle[1] <= 1e-4,
+          f"m disagrees {rec}")
+    check(pv_ratio <= 1.0, f"pv disagrees {rec}")
+    check(err_plain[2] <= tol * lmax and err_oracle[2] <= tol * lmax,
           f"l disagrees {rec}")
     return rec
 
 
 # ------------------------------------------------------------------ phases
 
-def phase_env(cuda_build):
+def phase_env(cuda_build, fa):
     import torch
 
     card = nvidia_smi()
-    sources = [KERNEL_SOURCE.split("/csrc/")[1]]
+    sources = list(fa.SOURCES.values())
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(cuda_build.build, sources))
@@ -234,37 +302,94 @@ def serving_shapes(cfg, prompt: int, gen: int):
     return shapes
 
 
-def phase_kernel(fa, cfg, prompt, gen):
+def _new_tally():
+    return {"n": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+            "bound_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0.0,
+            "max_pv_err_over_bound": 0.0}
+
+
+def _add(tally, rec, n):
+    tally["n"] += n
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        tally[key] += n * (rec[key] or 0.0)
+    if rec["bound_by"] == "bytes":
+        tally["bytes_ms"] += n * rec["bound_ms"]
+    tally["max_abs_err"] = max(tally["max_abs_err"],
+                               *rec["max_abs_err_vs_plain"].values())
+    tally["max_pv_err_over_bound"] = max(tally["max_pv_err_over_bound"],
+                                         rec["pv_err_over_bound"])
+
+
+def _per_launch(tally):
+    """Per-launch means of a tally (launch-count weighted)."""
+    n = tally["n"]
+    if not n:
+        return None
+    return {"launches": n, "ms": tally["ms"] / n,
+            "plain_ms": tally["plain_ms"] / n,
+            "bound_ms": tally["bound_ms"] / n,
+            "bound_by": ("bytes" if tally["bytes_ms"] * 2 >= tally["bound_ms"]
+                         else "operations"),
+            "library_ms": tally["library_ms"] / n,
+            "max_abs_err": tally["max_abs_err"],
+            "max_pv_err_over_bound": tally["max_pv_err_over_bound"]}
+
+
+def serving_mix(fa, cfg, prompt, gen, seed0):
+    """Every serving shape of one (prompt, gen) serve, timed and checked,
+    tallied per kernel and weighted by its launch count."""
+    import torch
+
+    kvh, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    shapes = serving_shapes(cfg, prompt, gen)
+    tallies = {name: _new_tally() for name in fa.SOURCES}
+    for j, (n, sq, t, q_off) in enumerate(shapes):
+        rec = attention_case(fa, 1, kvh, g, sq, t, hd, q_off, 0,
+                             torch.bfloat16, seed=seed0 + j,
+                             host=j in (1, len(shapes) - 1))
+        if j < 3 or j == len(shapes) - 1:
+            emit("kernel_case", serving_prompt=prompt, launches=n, **rec)
+        _add(tallies[rec["kernel"]], rec, n)
+    return {name: _per_launch(tl) for name, tl in tallies.items()}
+
+
+def phase_kernel(fa, cfg, prompt, gen, long_prompt):
     import torch
 
     f32, bf16 = torch.float32, torch.bfloat16
     kvh, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
-    cases = [(1, 2, 2, 256, 256, 128, qo, ko, f32)
-             for qo, ko in ((0, 0), (256, 0), (0, 256), (128, 0))]
-    cases += [
-        (1, 2, 2, 100, 2049, 32, 2000, 0, f32),     # hd 32, ragged t
-        (1, 2, 2, 77, 300, 64, 250, 0, bf16),       # hd 64, ragged
-        (1, kvh, g, 1, 2048, hd, 2047, 0, bf16),    # decode at t=2048
-        (1, kvh, g, 2048, 2048, hd, 0, 0, bf16),    # prefill bound case
+    jax_offsets = ((0, 0), (256, 0), (0, 256), (128, 0))
+    cases = [(1, 2, 2, 256, 256, 128, qo, ko, f32) for qo, ko in jax_offsets]
+    cases += [(1, 2, 2, 100, 2049, 32, 2000, 0, f32),          # hd 32, ragged
+              (1, 2, 2, 77, 300, 64, 250, 0, f32)]             # hd 64, ragged
+    cases += [                                                  # decode kernel
+        (1, kvh, g, 1, 160, hd, 159, 0, bf16),
+        (1, kvh, g, 1, 2048, hd, 2047, 0, bf16),
+        (1, kvh, g, 1, 333, hd, 200, 0, bf16),                  # ragged t
+        (1, kvh, g, 1, 160, hd, 10, 100, bf16),                 # nothing visible
+        (1, kvh, g, 1, 0, hd, 0, 0, bf16),                      # empty block
+        (1, 2, 4, 2, 300, 64, 250, 0, bf16),                    # hd 64, sq 2
+        (1, 2, 8, 1, 1000, 32, 999, 0, bf16),                   # hd 32, g 8
     ]
+    cases += [(1, 2, 2, 256, 256, 128, qo, ko, bf16) for qo, ko in jax_offsets]
+    cases += [                                                  # prefill kernel
+        (1, 2, 2, 77, 300, 64, 250, 0, bf16),                   # hd 64, ragged
+        (1, 2, 2, 100, 77, 32, 40, 0, bf16),                    # hd 32, ragged
+        (1, 2, 2, 64, 0, 64, 0, 0, bf16),                       # empty block
+        (1, kvh, g, 2048, 2048, hd, 0, 0, bf16),                # s = 2048
+    ]
+    by_kernel = {name: _new_tally() for name in fa.SOURCES}
     for i, case in enumerate(cases):
-        emit("kernel_case", **attention_case(fa, *case, seed=i))
-    # The serving shapes of phase 3, each weighted by its launch count.
-    mix = {"n": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "bound_ms": 0.0, "bytes_ms": 0.0, "max_abs_err": 0.0}
-    for j, (n, sq, t, q_off) in enumerate(serving_shapes(cfg, prompt, gen)):
-        rec = attention_case(fa, 1, kvh, g, sq, t, hd, q_off, 0, bf16,
-                             seed=100 + j, iters=10)
-        if j < 3 or j == len(serving_shapes(cfg, prompt, gen)) - 1:
-            emit("kernel_case", serving=True, launches=n, **rec)
-        mix["n"] += n
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-            mix[key] += n * rec[key]
-        if rec["bound_by"] == "bytes":
-            mix["bytes_ms"] += n * rec["bound_ms"]
-        mix["max_abs_err"] = max(mix["max_abs_err"],
-                                 *rec["max_abs_err_vs_plain"].values())
-    return mix
+        rec = attention_case(fa, *case, seed=i,
+                             calls=4 if case[3] * case[4] > 1 << 20 else 10)
+        emit("kernel_case", **rec)
+        _add(by_kernel[rec["kernel"]], rec, 1)
+    for name, tally in by_kernel.items():
+        check(tally["n"] > 0, f"no phase-2 case for the {name} kernel")
+    mixes = {f"prompt{p}": serving_mix(fa, cfg, p, gen, seed0)
+             for p, seed0 in ((prompt, 100), (long_prompt, 200))}
+    emit("kernel_mixes", gen=gen, timing=TIMING, mixes=mixes)
+    return {name: _per_launch(tl) for name, tl in by_kernel.items()}, mixes
 
 
 def fabricate(cfg, serde, seed):
@@ -392,20 +517,29 @@ def phase_main(cfg, args, fa):
     torch.cuda.reset_peak_memory_stats()
     stager = StreamingBootStager(cfg)
 
-    fa.launches = 0  # the main path's count starts here
+    fa.reset_counts()  # the main path's counts start here
     layers, ingest_s, n_frags = deliver(cfg, blobs, stager, args.seed)
     exact = staged_bytes_exact(cfg, serde, stager, blobs)
     t0 = time.monotonic()
     res = boot_from_layers(cfg, layers, stager=stager, tokens=prompt,
                            generate_tokens=args.gen)
     boot_wall = time.monotonic() - t0
-    launches = fa.launches  # ...and is read here
+    launches = fa.launches  # ...and are read here
+    by_kernel = dict(fa.launches_by_kernel)
     stager.close()
 
-    expected = sum(n for n, *_ in serving_shapes(cfg, args.prompt, args.gen))
+    g = cfg.n_heads // cfg.n_kv_heads
+    want = {name: 0 for name in fa.SOURCES}
+    for n, sq, *_ in serving_shapes(cfg, args.prompt, args.gen):
+        want[fa.kernel_for(sq, g, cfg.dtype)] += n
     check(res.via == "streamed per-layer", f"via {res.via!r}")
     check(launches > 0, "the main path launched no attention kernel")
-    check(launches == expected, f"launches {launches} != {expected}")
+    check(launches == sum(want.values()),
+          f"launches {launches} != {sum(want.values())}")
+    check(by_kernel == want, f"launches by kernel {by_kernel} != {want}")
+    for name, n in want.items():
+        check(n == 0 or by_kernel[name] > 0,
+              f"the main path never launched the {name} kernel")
     check(tuple(res.tokens.shape) == (1, args.gen), "token shape")
     check(bool(torch.isfinite(res.logits).all()), "non-finite logits")
     check(tuple(res.logits.shape) == (1, args.prompt, cfg.vocab),
@@ -413,21 +547,8 @@ def phase_main(cfg, args, fa):
 
     # Warm serving times (outside the counted run): REPEATS samples each
     # of a prefill-only call and a full --gen call.
-    from distributed_llm_dissemination_tpu_torch.models.generate import (
-        generate)
-
-    def serve_ms(n):
-        torch.cuda.synchronize()
-        t = time.monotonic()
-        generate(res.params, prompt, cfg, n)
-        torch.cuda.synchronize()
-        return (time.monotonic() - t) * 1e3
-
-    serve_ms(2)
-    prefill = sorted(serve_ms(1) for _ in range(REPEATS))
-    full = sorted(serve_ms(args.gen) for _ in range(REPEATS))
-    per_token = sorted((f - statistics.median(prefill)) / (args.gen - 1)
-                       for f in full)
+    prefill, per_token = warm_serve(cfg, res.params, prompt, args.gen,
+                                    REPEATS)
     emit("main", config=cfg.name, blobs=len(blobs), bytes=total,
          fabricate_s=fab_s, fragments=n_frags, writers=WRITERS,
          ingest_s=ingest_s, ingest_gbps=total / ingest_s / 1e9,
@@ -442,8 +563,59 @@ def phase_main(cfg, args, fa):
          warm_decode_ms_per_token_median=statistics.median(per_token),
          warm_decode_ms_per_token_min_max=[per_token[0], per_token[-1]],
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         attention_launches=launches, tokens=res.tokens[0].tolist())
-    return res, prompt, launches
+         attention_launches=launches, attention_launches_by_kernel=by_kernel,
+         tokens=res.tokens[0].tolist())
+    return res, prompt, by_kernel
+
+
+def warm_serve(cfg, params, prompt, gen, repeats):
+    """Sorted warm ms of ``repeats`` prefill-only calls, and sorted decode
+    ms per token of ``repeats`` full ``gen``-token calls."""
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.models.generate import (
+        generate)
+
+    def serve_ms(n):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        generate(params, prompt, cfg, n)
+        torch.cuda.synchronize()
+        return (time.monotonic() - t) * 1e3
+
+    serve_ms(2)
+    prefill = sorted(serve_ms(1) for _ in range(repeats))
+    full = sorted(serve_ms(gen) for _ in range(repeats))
+    per_token = sorted((f - statistics.median(prefill)) / (gen - 1)
+                       for f in full)
+    return prefill, per_token
+
+
+def phase_long_serve(cfg, args, res):
+    """A warm serve of a --long-prompt prompt on the booted params: the
+    shape at which attention costs the most."""
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.models import llama
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    prompt = torch.randint(0, cfg.vocab, (1, args.long_prompt),
+                           generator=gen, device="cuda")
+    logits = llama.forward(res.params, prompt, cfg)
+    check(bool(torch.isfinite(logits).all()), "non-finite long-prompt logits")
+    check(tuple(logits.shape) == (1, args.long_prompt, cfg.vocab),
+          "long-prompt logit shape")
+    del logits
+    prefill, per_token = warm_serve(cfg, res.params, prompt, args.gen,
+                                    LONG_REPEATS)
+    emit("long_serve", prompt=args.long_prompt, gen=args.gen,
+         warm_samples=LONG_REPEATS,
+         warm_prefill_ms_median=statistics.median(prefill),
+         warm_prefill_ms_min_max=[prefill[0], prefill[-1]],
+         warm_decode_ms_per_token_median=statistics.median(per_token),
+         warm_decode_ms_per_token_min_max=[per_token[0], per_token[-1]],
+         logits_finite=True)
+    return prompt
 
 
 def phase_parity(cfg, res, prompt, fa):
@@ -483,7 +655,7 @@ def phase_parity(cfg, res, prompt, fa):
           f"greedy ids differ before the first near-tie ({upto})")
 
 
-def phase_profile(cfg, res, prompt):
+def phase_profile(cfg, res, prompt, label):
     """Where a warm serving call spends the card's time: torch.profiler
     over ``generate`` of 9 tokens (prefill + 8 decode steps)."""
     import torch
@@ -503,13 +675,55 @@ def phase_profile(cfg, res, prompt):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    attention = {}
+    for name, kernels in DEVICE_KERNELS.items():
+        hits = [e for e in events if any(k in e.key for k in kernels)]
+        if hits:
+            ms = sum(e.self_device_time_total for e in hits) / 1e3
+            attention[name] = {
+                "device_ms": ms,
+                "cuda_kernels": {e.key[:60]: {
+                    "launches": e.count,
+                    "device_ms": e.self_device_time_total / 1e3}
+                    for e in hits},
+                "device_ms_per_call": ms / max(e.count for e in hits)}
+    attention_ms = sum(a["device_ms"] for a in attention.values())
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
-    emit("profile", what="generate(prompt, 9 tokens), warm, under the "
-         "profiler", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    emit("profile", what=f"generate(prompt of {prompt.shape[1]}, 9 tokens), "
+         "warm, under the profiler", label=label, wall_ms=wall_ms,
+         device_busy_ms=busy_ms,
          device_idle_share=(1 - busy_ms / wall_ms) if wall_ms else None,
+         attention=attention, attention_device_ms=attention_ms,
+         attention_share_of_busy=attention_ms / busy_ms if busy_ms else None,
          top=[{"name": e.key[:80], "device_ms": e.self_device_time_total / 1e3,
                "calls": e.count} for e in top])
+
+
+def kernel_entry(fa, name, launches, case_stats, mixes, main_mix):
+    """One ``kernels`` entry: the per-launch means of the main path's
+    launch mix, or of phase 2's cases for a kernel the main path does not
+    run, with every mix beside them."""
+    head = mixes[main_mix][name] or case_stats[name]
+    return {
+        "name": f"block_attention_{name}",
+        "route": "cuda",
+        "source": CSRC + fa.SOURCES[name],
+        "replaces": KERNEL_REPLACES,
+        "launches": launches[name],
+        "max_abs_err": head["max_abs_err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "device_kernels": list(DEVICE_KERNELS[name]),
+        "numbers_from": (f"{main_mix} serving mix" if mixes[main_mix][name]
+                         else "phase-2 cases (not on the main path)"),
+        "timing": TIMING,
+        "mixes": {mix: stats[name] for mix, stats in mixes.items()},
+        "phase2_cases": case_stats[name],
+    }
 
 
 def main() -> int:
@@ -517,6 +731,7 @@ def main() -> int:
     ap.add_argument("--config", default="llama3-8b-d4")
     ap.add_argument("--prompt", type=int, default=128)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--long-prompt", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
@@ -531,28 +746,19 @@ def main() -> int:
         cuda_build, flash_attention as fa)
 
     cfg = CONFIGS[args.config]
-    card = phase_env(cuda_build)
-    mix = phase_kernel(fa, cfg, args.prompt, args.gen)
+    card = phase_env(cuda_build, fa)
+    case_stats, mixes = phase_kernel(fa, cfg, args.prompt, args.gen,
+                                     args.long_prompt)
     res, prompt, launches = phase_main(cfg, args, fa)
+    long_prompt = phase_long_serve(cfg, args, res)
     phase_parity(cfg, res, prompt, fa)
-    phase_profile(cfg, res, prompt)
+    phase_profile(cfg, res, prompt, "prompt")
+    phase_profile(cfg, res, long_prompt, "long_prompt")
 
-    n = mix["n"]
-    print(json.dumps({"kernels": [{
-        "name": "block_attention",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": mix["max_abs_err"],
-        "ms": mix["ms"] / n,
-        "plain_ms": mix["plain_ms"] / n,
-        "bound_ms": mix["bound_ms"] / n,
-        "bound_by": ("bytes" if mix["bytes_ms"] * 2 >= mix["bound_ms"]
-                     else "operations"),
-        "library_ms": mix["library_ms"] / n,
-        "note": "per-launch means over the main path's launch mix",
-    }]}), flush=True)
+    main_mix = f"prompt{args.prompt}"
+    print(json.dumps({"kernels": [
+        kernel_entry(fa, name, launches, case_stats, mixes, main_mix)
+        for name in fa.SOURCES]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _locks
+_locks: Dict[str, threading.Lock] = {}  # one per source: builds run in parallel
 _built: Dict[str, Tuple[Path, float, str]] = {}  # source -> (lib, s, ptxas)
 
 
@@ -54,8 +55,11 @@ def library_path(source: str) -> Path:
 def build(source: str) -> Tuple[Path, float, str]:
     """Compile ``csrc/<source>`` unless its library already exists.
     Returns ``(library path, build seconds, ptxas report)``; seconds is 0
-    and the report empty when an existing library was reused."""
+    and the report empty when an existing library was reused.  Builds of
+    different sources may run at the same time from different threads."""
     with _lock:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         if source in _built:
             return _built[source]
         out = library_path(source)

@@ -7,18 +7,30 @@ where ``m``/``l`` are the row max and normaliser and ``pv`` the
 unnormalised value sum, all f32.  ``pv / l`` is the attention output;
 ``merge_partials`` combines blocks (ring attention).
 
-Two implementations of the one function:
+One function, a plain version and three Hopper kernels:
 
 - ``block_attention_ref``: plain PyTorch (einsum + where), the twin of
   the JAX package's ``_block_attention_ref``.  It materialises the
   [sq, t] logits.
-- the CUDA kernel ``csrc/block_attention.cu`` for Hopper, built with
-  ``nvcc`` on first use and called through ``ctypes``
-  (``ops/cuda_build.py``).  Its source note gives its bounds and design.
+- ``csrc/attention_decode.cu``: split-KV decode for bf16 calls with at
+  most ``DECODE_MAX_ROWS`` query rows per KV head (``g * sq``).  The
+  visible keys are cut into chunks (``split_plan``) so the card's SMs all
+  work; a second small kernel merges the chunks' partials.
+- ``csrc/attention_prefill.cu``: tensor-core prefill (``wgmma`` fed by
+  TMA) for every other bf16 call.  It rounds p to bf16 for the PV
+  product, which bounds its pv error against the plain version by
+  ``2**-9 * l * max|v|`` per row (``BF16_P_REL``).
+- ``csrc/block_attention.cu``: the scalar f32 kernel, for f32 inputs.
+
+``kernel_for(sq, g, dtype)`` picks among them; the choice depends on
+nothing else.  Each source is built with ``nvcc`` on first use and called
+through ``ctypes`` (``ops/cuda_build.py``); its source note gives its
+bounds and design.
 
 ``block_attention`` takes the plain version only for tensors on the CPU.
-For CUDA tensors it launches the kernel or raises; ``launches`` counts
-the launches, so a run can show which path it took.
+For CUDA tensors it launches the chosen kernel or raises.  ``launches``
+counts the calls that launched, and ``launches_by_kernel`` which kernel
+served each, so a run can show which path it took.
 
 The port's model (``models/llama.py``, ``models/generate.py``) runs
 every attention through ``block_attention``: the cache-less forward is
@@ -37,29 +49,85 @@ import torch
 from . import cuda_build
 
 NEG_INF = -1e30  # finite: -inf would make (m - m_new) NaN on empty rows
-SOURCE = "block_attention.cu"
-HEAD_DIMS = (32, 64, 128)  # the kernel's template instances
+SOURCES = {"decode": "attention_decode.cu",
+           "prefill": "attention_prefill.cu",
+           "scalar": "block_attention.cu"}
+HEAD_DIMS = (32, 64, 128)  # every kernel's template instances
+DECODE_MAX_ROWS = 8  # g * sq at or below this takes the decode kernel
+SMS = 132  # streaming multiprocessors of an H100 SXM
+DECODE_CTAS_PER_SM = 2  # split target: about two decode CTAs per SM
+DECODE_CHUNK_ALIGN = 32  # split chunks are whole multiples of this
+# bf16 rounding of p in the prefill kernel: |p_bf16 - p| <= 2**-9 * p.
+BF16_P_REL = 2.0 ** -9
+LOG2E = 1.4426950408889634
 
-# Kernel launches since the last reset (a plain count; chip_smoke.py zeroes
-# it before driving the main path and reads it after).
+# Calls that launched a kernel since the last reset_counts(), in all and
+# per kernel (chip_smoke.py zeroes them before driving the main path and
+# reads them after).
 launches = 0
+launches_by_kernel = {name: 0 for name in SOURCES}
 
-_lib = None
+_fns = {}
 _lib_lock = threading.Lock()
+_ONE_PASS_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                  + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p])
+_ARGTYPES = {
+    "decode": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+               + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p]),
+    "prefill": _ONE_PASS_ARGS,
+    "scalar": _ONE_PASS_ARGS,
+}
+_SYMBOLS = {"decode": "attention_decode_fwd",
+            "prefill": "attention_prefill_fwd",
+            "scalar": "block_attention_fwd"}
 
 
-def _kernel():
-    global _lib
+def reset_counts() -> None:
+    global launches
+    launches = 0
+    for name in launches_by_kernel:
+        launches_by_kernel[name] = 0
+
+
+def kernel_for(sq: int, g: int, dtype: torch.dtype) -> str:
+    """Which kernel serves a CUDA call: ``"scalar"`` for f32 inputs,
+    ``"decode"`` for bf16 with ``g * sq <= DECODE_MAX_ROWS``, else
+    ``"prefill"``."""
+    if dtype == torch.float32:
+        return "scalar"
+    return "decode" if g * sq <= DECODE_MAX_ROWS else "prefill"
+
+
+def visible_keys(sq: int, t: int, q_off: int, k_off: int) -> int:
+    """How many leading keys of the block the latest query row can see:
+    keys [0, n) are the only ones any row can see."""
+    return max(0, min(t, int(q_off) + sq - 1 - int(k_off) + 1))
+
+
+def split_plan(bh: int, sq: int, t: int, q_off: int, k_off: int):
+    """The decode kernel's grid: ``(n_vis, n_split, chunk)``.  Split s
+    reads keys ``[s * chunk, min((s + 1) * chunk, n_vis))``; the splits
+    cover the visible keys exactly once and none starts past them.  The
+    split count aims at ``DECODE_CTAS_PER_SM`` CTAs per SM over the ``bh``
+    (batch x KV head) rows of the grid.  With no visible key there is one
+    empty split, which reads nothing."""
+    n_vis = visible_keys(sq, t, q_off, k_off)
+    if n_vis == 0:
+        return 0, 1, 0
+    want = max(1, -(-DECODE_CTAS_PER_SM * SMS // max(bh, 1)))
+    chunk = -(-n_vis // want)
+    chunk = -(-chunk // DECODE_CHUNK_ALIGN) * DECODE_CHUNK_ALIGN
+    return n_vis, -(-n_vis // chunk), chunk
+
+
+def _kernel(name: str):
     with _lib_lock:
-        if _lib is None:
-            lib = cuda_build.load(SOURCE)
-            fn = lib.block_attention_fwd
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                           + [ctypes.c_longlong] * 2
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        if name not in _fns:
+            fn = getattr(cuda_build.load(SOURCES[name]), _SYMBOLS[name])
+            fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
-            _lib = fn
-        return _lib
+            _fns[name] = fn
+        return _fns[name]
 
 
 def _check(qg, k, v) -> None:
@@ -112,8 +180,8 @@ def block_attention_ref(qg, k, v, q_off: int, k_off: int):
 
 def block_attention(qg, k, v, q_off: int, k_off: int):
     """One KV block's partial attention (module docstring).  CPU tensors
-    take ``block_attention_ref``; CUDA tensors launch the Hopper kernel
-    (hd in ``HEAD_DIMS``), or raise."""
+    take ``block_attention_ref``; CUDA tensors launch the kernel that
+    ``kernel_for`` names (hd in ``HEAD_DIMS``), or raise."""
     global launches
     _check(qg, k, v)
     if qg.device.type == "cpu":
@@ -123,22 +191,48 @@ def block_attention(qg, k, v, q_off: int, k_off: int):
     b, kvh, g, sq, hd = qg.shape
     t = k.shape[2]
     if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in the kernel's {HEAD_DIMS}")
-    fn = _kernel()
-    pv = torch.empty(qg.shape, dtype=torch.float32, device=qg.device)
-    m = torch.empty(qg.shape[:4], dtype=torch.float32, device=qg.device)
-    l = torch.empty_like(m)
-    if pv.numel() == 0:
+        raise ValueError(f"head_dim {hd} not in the kernels' {HEAD_DIMS}")
+    if any(x.data_ptr() % 16 for x in (qg, k, v)):
+        raise ValueError("qg, k and v must start on a 16-byte boundary")
+    name = kernel_for(sq, g, qg.dtype)
+    fn = _kernel(name)
+    bh, rows = b * kvh, g * sq
+    n_out = bh * rows
+    if name == "decode":
+        n_vis, n_split, chunk = split_plan(bh, sq, t, q_off, k_off)
+    else:
+        n_split = 1
+    # One allocation: pv, m, l and, for a split decode, its partials.
+    n_part = n_out * n_split if n_split > 1 else 0
+    buf = torch.empty(n_out * (hd + 2) + n_part * (hd + 2),
+                      dtype=torch.float32, device=qg.device)
+    pv = buf[: n_out * hd].view(qg.shape)
+    m = buf[n_out * hd : n_out * (hd + 1)].view(qg.shape[:4])
+    l = buf[n_out * (hd + 1) : n_out * (hd + 2)].view(qg.shape[:4])
+    if n_out == 0:
         return pv, m, l
     stream = torch.cuda.current_stream(qg.device).cuda_stream
-    err = fn(qg.data_ptr(), k.data_ptr(), v.data_ptr(), pv.data_ptr(),
-             m.data_ptr(), l.data_ptr(), b * kvh, g * sq, sq, t, hd,
-             int(q_off), int(k_off), math.sqrt(hd),
-             int(qg.dtype == torch.bfloat16), stream)
+    ptrs = (qg.data_ptr(), k.data_ptr(), v.data_ptr(), pv.data_ptr(),
+            m.data_ptr(), l.data_ptr())
+    if name == "decode":
+        part = ptrs[3:]
+        if n_part:  # partials follow pv, m, l in the same buffer
+            base = buf.data_ptr() + 4 * n_out * (hd + 2)
+            part = (base, base + 4 * n_part * hd,
+                    base + 4 * n_part * (hd + 1))
+        err = fn(*ptrs, *part, bh, rows, sq, t, hd, n_vis, n_split, chunk,
+                 int(q_off), int(k_off), LOG2E / math.sqrt(hd), stream)
+    elif name == "prefill":
+        err = fn(*ptrs, bh, rows, sq, t, hd, int(q_off), int(k_off),
+                 LOG2E / math.sqrt(hd), stream)
+    else:
+        err = fn(*ptrs, bh, rows, sq, t, hd, int(q_off), int(k_off),
+                 math.sqrt(hd), stream)
     if err != 0:
-        raise RuntimeError(f"block_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"block_attention {name} kernel launch failed: "
+                           f"CUDA error {err}")
     launches += 1
+    launches_by_kernel[name] += 1
     return pv, m, l
 
 

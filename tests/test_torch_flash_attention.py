@@ -191,10 +191,22 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
+    # scalar kernel (f32)
     (1, 2, 2, 256, 256, 128, 128, 0, torch.float32),
-    (1, 8, 4, 1, 160, 128, 159, 0, torch.bfloat16),
-    (1, 8, 4, 128, 128, 128, 0, 0, torch.bfloat16),
     (1, 2, 2, 100, 2049, 32, 2000, 0, torch.float32),
+    # split-KV decode kernel (bf16, g * sq <= 8)
+    (1, 8, 4, 1, 160, 128, 159, 0, torch.bfloat16),
+    (1, 8, 4, 1, 2048, 128, 2047, 0, torch.bfloat16),
+    (1, 8, 4, 1, 333, 64, 200, 0, torch.bfloat16),
+    (1, 2, 4, 2, 300, 32, 250, 0, torch.bfloat16),
+    (1, 8, 4, 1, 160, 128, 10, 100, torch.bfloat16),   # nothing visible
+    (1, 8, 4, 1, 0, 128, 0, 0, torch.bfloat16),        # empty block
+    # tensor-core prefill kernel (bf16)
+    (1, 8, 4, 128, 128, 128, 0, 0, torch.bfloat16),
+    (1, 2, 2, 77, 300, 64, 250, 0, torch.bfloat16),
+    (1, 2, 2, 100, 77, 32, 40, 0, torch.bfloat16),
+    (1, 2, 2, 64, 64, 128, 0, 32, torch.bfloat16),     # masked rows
+    (1, 2, 2, 64, 0, 64, 0, 0, torch.bfloat16),        # empty block
 ])
 def test_cuda_kernel_matches_plain_version(case):
     if not torch.cuda.is_available():
@@ -206,10 +218,18 @@ def test_cuda_kernel_matches_plain_version(case):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     qg, k, v = rnd(b, kvh, g, sq, hd), rnd(b, kvh, t, hd), rnd(b, kvh, t, hd)
-    before = tfa.launches
+    name = tfa.kernel_for(sq, g, dtype)
+    before = dict(tfa.launches_by_kernel)
     got = tfa.block_attention(qg, k, v, q_off, k_off)
     torch.cuda.synchronize()
-    assert tfa.launches == before + 1
+    assert tfa.launches_by_kernel[name] == before[name] + 1
     want = tfa.block_attention_ref(qg, k, v, q_off, k_off)
-    for g_, w in zip(got, want):
+    for g_, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g_, w, rtol=1e-4, atol=1e-4)
+    # pv: the prefill kernel rounds p to bf16 (module docstring), so its
+    # per-row bound is BF16_P_REL * l * max|v| on top of the f32 slack.
+    slack = 1e-4 * (1 + want[0].abs())
+    if name == "prefill" and t:
+        slack = slack + (tfa.BF16_P_REL * want[2] * v.float().abs().max()
+                         )[..., None]
+    assert bool(((got[0] - want[0]).abs() <= slack).all())
