@@ -31,6 +31,20 @@ caught):
 5. profile: device time by kernel, each attention kernel's time per call,
    attention's share of device time and the device's idle share over a
    warm ``generate`` call at each prompt length (``torch.profiler``).
+6. dissemination: phase 3's model is freed, then a mode-3 round of the
+   port's control plane over loopback TCP delivers the same blobs into
+   the card's memory: leader 0 and seeder 1 hold every blob (sharing one
+   host copy), a max-flow plan splits the bytes between them, cold dest 2
+   reassembles, verifies digests, ingests each layer fragment by fragment
+   into HBM, stages and boots, then answers ``REQUESTS`` greedy
+   ``GenerateReqMsg`` requests for phase 3's prompt from a requester
+   seat.  Checked: every blob on the card byte-exact via incremental
+   ingest, no fallback fired, both seeders sent bytes, the warm-up ran
+   before startup, a full boot, served ids equal to phase 3's, and the
+   attention launches of the phase equal what the warm-up, the boot and
+   the requests must launch, by kernel.  The round runs twice: with the
+   host's integrity algorithms (xxh3 where ``xxhash`` imports), then as
+   on a host without ``xxhash`` (crc32 frames, blake2b-128 digests).
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` prints them, and, last, the ``{"ok": true, ...}`` line.
@@ -39,6 +53,8 @@ Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 from __future__ import annotations
 
 import argparse
+import functools
+import gc
 import json
 import math
 import queue
@@ -63,6 +79,13 @@ WRITERS = 4
 REPEATS = 5  # warm serving samples
 LONG_REPEATS = 3  # warm long-prompt serving samples
 TIMING = "CUDA-graph replay, mean device ms per call"
+REQUESTS = 3  # served requests in the dissemination phase
+# NIC model of the dissemination round: far above what loopback carries,
+# so the plan never paces a send; the dest's is twice a seeder's so the
+# max-flow plan needs both seeders (with equal NICs one already meets its
+# bound and the plan names only one).
+SEEDER_NIC = 1 << 40
+DEST_NIC = 1 << 41
 
 
 def emit(phase: str, **fields) -> None:
@@ -83,6 +106,17 @@ def nvidia_smi() -> str:
 
 # ----------------------------------------------------------------- timing
 
+@functools.cache
+def _warm_stream():
+    """The one side stream every ``time_graph`` warms up on.  PyTorch keeps
+    a cuBLAS workspace for each stream that ran a product until the process
+    ends, so a stream per call would leave over 1 GiB allocated after
+    phase 2."""
+    import torch
+
+    return torch.cuda.Stream()
+
+
 def time_graph(fn, calls: int = 10, replays: int = 3) -> float:
     """Mean device milliseconds per call of ``fn``: ``calls`` calls are
     captured into one CUDA graph and the graph is replayed ``replays``
@@ -90,7 +124,7 @@ def time_graph(fn, calls: int = 10, replays: int = 3) -> float:
     the number (it would be, timing back-to-back eager calls)."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = _warm_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(2):
@@ -508,6 +542,7 @@ def phase_main(cfg, args, fa):
         StreamingBootStager)
 
     blobs, fab_s = fabricate(cfg, serde, args.seed)
+    fab = {"blobs": blobs}
     total = sum(len(b) for b in blobs.values())
     bulk = bulk_gbps(blobs)
     gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
@@ -565,7 +600,10 @@ def phase_main(cfg, args, fa):
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          attention_launches=launches, attention_launches_by_kernel=by_kernel,
          tokens=res.tokens[0].tolist())
-    return res, prompt, by_kernel
+    fab["tokens"] = res.tokens[0].tolist()
+    fab["serve_ms"] = {"prefill": statistics.median(prefill),
+                       "per_token": statistics.median(per_token)}
+    return res, prompt, by_kernel, fab
 
 
 def warm_serve(cfg, params, prompt, gen, repeats):
@@ -700,6 +738,249 @@ def phase_profile(cfg, res, prompt, label):
                "calls": e.count} for e in top])
 
 
+def loopback_gbps(total: int = 1 << 30, streams: int = 4) -> float:
+    """Raw TCP loopback GB/s: ``streams`` plain sockets carry ``total``
+    bytes together (``sendall`` of one buffer, ``recv_into`` a reused
+    one).  The yardstick of the round's wire: the same hop without the
+    transport's framing, checksums, reassembly and device ingest."""
+    import socket
+
+    chunk, per = 16 << 20, total // streams
+    payload = memoryview(bytearray(chunk))
+    srv = socket.create_server(("127.0.0.1", 0), backlog=streams)
+    port = srv.getsockname()[1]
+
+    def receive():
+        conn, _ = srv.accept()
+        buf = memoryview(bytearray(chunk))
+        left = per
+        while left:
+            n = conn.recv_into(buf[:min(chunk, left)])
+            check(n > 0, "loopback probe: peer closed early")
+            left -= n
+        conn.close()
+
+    def send():
+        with socket.create_connection(("127.0.0.1", port)) as conn:
+            left = per
+            while left:
+                n = min(chunk, left)
+                conn.sendall(payload[:n])
+                left -= n
+
+    threads = ([threading.Thread(target=receive) for _ in range(streams)]
+               + [threading.Thread(target=send) for _ in range(streams)])
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    secs = time.monotonic() - t0
+    srv.close()
+    return per * streams / secs / 1e9
+
+
+def _expected_round_launches(fa, cfg, args, warm):
+    """The attention launches of the dissemination phase, by kernel: the
+    dest's warm-up (its record), the boot's first forward and, per
+    request, a prefill and ``gen - 1`` decode steps."""
+    from distributed_llm_dissemination_tpu_torch.runtime.boot import (
+        BOOT_TOKENS)
+
+    g = cfg.n_heads // cfg.n_kv_heads
+    L = cfg.n_layers
+    want = {name: warm.get(name, 0) for name in fa.SOURCES}
+    want[fa.kernel_for(BOOT_TOKENS, g, cfg.dtype)] += L
+    want[fa.kernel_for(args.prompt, g, cfg.dtype)] += REQUESTS * L
+    want[fa.kernel_for(1, g, cfg.dtype)] += REQUESTS * (args.gen - 1) * L
+    return want
+
+
+def _join_round_threads(before, timeout_s: float = 30.0) -> None:
+    """Wait for the threads a round started (message loops, heartbeats,
+    serve threads) to end.  ``close()`` only signals them, and each holds
+    its node, so until they end the round's tensors stay allocated.  The
+    transport's process-wide data threads (``threads.DATA_PREFIXES``)
+    outlive every round and are not waited for."""
+    from distributed_llm_dissemination_tpu_torch.utils.threads import (
+        DATA_PREFIXES)
+
+    deadline = time.monotonic() + timeout_s
+    for t in threading.enumerate():
+        if t not in before and not t.name.startswith(DATA_PREFIXES):
+            t.join(max(0.0, deadline - time.monotonic()))
+
+
+def phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=False):
+    """One mode-3 round (module docstring, phase 6).  ``without_xxhash``:
+    every node of the round runs as on a host without the ``xxhash``
+    extension (crc32 frame checksums, blake2b-128 layer digests)."""
+    import os
+
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.core.types import (
+        LayerLocation, LayerMeta, LayerSrc, SourceType)
+    from distributed_llm_dissemination_tpu_torch.native import (
+        load_flow_solver)
+    from distributed_llm_dissemination_tpu_torch.parallel.mesh import (
+        assignment_to_placement)
+    from distributed_llm_dissemination_tpu_torch.runtime import (
+        FlowRetransmitLeaderNode, FlowRetransmitReceiverNode, Node)
+    from distributed_llm_dissemination_tpu_torch.runtime.client import (
+        GenRequester)
+    from distributed_llm_dissemination_tpu_torch.transport.tcp import (
+        TcpTransport)
+    from distributed_llm_dissemination_tpu_torch.utils import (
+        integrity, telemetry, trace)
+
+    host_xxhash = integrity._xxhash
+    if without_xxhash:
+        integrity._xxhash = None
+    blobs = fab["blobs"]
+    ids = sorted(blobs)
+    total = sum(len(b) for b in blobs.values())
+
+    def holdings():
+        # Leader and seeder share one host copy of each blob.
+        return {lid: LayerSrc(inmem_data=blobs[lid], data_size=len(blobs[lid]),
+                              meta=LayerMeta(location=LayerLocation.INMEM,
+                                             source_type=SourceType.MEM))
+                for lid in ids}
+
+    assignment = {2: {lid: LayerMeta() for lid in ids}}
+    placement = assignment_to_placement(assignment)  # one card, one stage
+    nic = {0: SEEDER_NIC, 1: SEEDER_NIC, 2: DEST_NIC}
+    # The boot keeps each staged blob's tensor referenced (its leaves view
+    # the same memory), so the byte check below reads what was staged.
+    os.environ["DLD_BOOT_DONATE"] = "0"
+    ts = {i: TcpTransport("127.0.0.1:0") for i in range(4)}
+    for t in ts.values():
+        t.addr_registry.update({i: u.addr for i, u in ts.items()})
+    solver = "native (C++)" if load_flow_solver() is not None else "python"
+    gc.collect()  # an earlier round's nodes and tensors
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    allocated_at_start = torch.cuda.memory_allocated()
+    threads_before = set(threading.enumerate())
+    trace.reset_run()
+    fa.reset_counts()  # the round's counts start here
+    t_phase = time.monotonic()
+    leader = FlowRetransmitLeaderNode(Node(0, 0, ts[0]), holdings(),
+                                      assignment, nic, expected_nodes={1, 2})
+    seeder = FlowRetransmitReceiverNode(Node(1, 0, ts[1]), holdings())
+    dest = FlowRetransmitReceiverNode(Node(2, 0, ts[2]), {}, stage_hbm=True,
+                                      placement=placement, boot_cfg=cfg)
+    requester = GenRequester(ts[3], my_id=3)
+    try:
+        seeder.announce()
+        dest.announce()
+        leader.start_distribution().get(timeout=300)
+        t0 = time.monotonic()
+        leader.ready().get(timeout=600)
+        t_startup = time.monotonic()
+        booted = leader.boot_ready().get(timeout=600)
+        t_boot = time.monotonic()
+        served, latency = [], []
+        for _ in range(REQUESTS):
+            t_req = time.monotonic()
+            served.append(requester.request(2, prompt[0].tolist(), args.gen,
+                                            timeout=300))
+            latency.append(time.monotonic() - t_req)
+        launches = dict(fa.launches_by_kernel)  # ...and are read here
+        wall = time.monotonic() - t_phase
+        counters = trace.counter_totals()
+        phases = trace.phase_totals()
+        links = telemetry.snapshot().get("links", {})
+
+        res = dest.boot_result
+        for lid in ids:
+            src = dest.layers[lid]
+            arr = src.device_array
+            check(src.meta.location == LayerLocation.HBM,
+                  f"blob {lid} at {src.meta.location!r}, not HBM")
+            check(isinstance(arr, torch.Tensor) and arr.is_cuda,
+                  f"blob {lid} is not a CUDA tensor")
+            host = torch.frombuffer(blobs[lid], dtype=torch.uint8).to("cuda")
+            check(torch.equal(arr, host), f"blob {lid} not byte-exact")
+            del host
+        via_ingest = counters.get("hbm_staged.incremental_ingest", 0)
+        check(via_ingest == len(ids),
+              f"{via_ingest} of {len(ids)} staged via incremental ingest")
+        fallbacks = {k: v for k, v in counters.items()
+                     if k.startswith("fallback.")}
+        check(not any(fallbacks.values()), f"fallbacks fired: {fallbacks}")
+        sent = {src: links.get(f"{src}->2", {}).get("tx_bytes", 0)
+                for src in (0, 1)}
+        check(all(sent.values()), f"a seeder sent nothing: {sent}")
+        check(sum(sent.values()) >= total, f"sent {sent} < {total} bytes")
+        warm = dest.precompile_records
+        check(len(warm) >= 1 and all(in_wire for _, in_wire in warm),
+              f"warm-up did not finish before startup: {warm}")
+        check(booted.keys() == {2} and res is not None and res.kind == "full",
+              f"boot {booted} kind {getattr(res, 'kind', None)}")
+        for ids_got in served:
+            check(ids_got == fab["tokens"],
+                  f"served ids {ids_got} != phase 3's {fab['tokens']}")
+        want = _expected_round_launches(fa, cfg, args, warm[0][0]["launches"])
+        check(launches == want, f"round launches {launches} != {want}")
+
+        ttd = t_startup - t0
+        direct = fab["serve_ms"]
+        emit("dissemination", config=cfg.name, mode=3, transport="tcp loopback",
+             xxhash=not without_xxhash,
+             blobs=len(ids), bytes=total, nic_bytes_per_s=nic,
+             solver=solver, ttd_s=ttd,
+             predicted_ttd_s=leader.predicted_ttd_ms / 1e3,
+             solve_ms=leader.solve_ms, wire_gbps=total / ttd / 1e9,
+             sent_bytes_by_source=sent,
+             frame_checksum=integrity.fragment_checksum(b"")[0],
+             digest_algo=integrity.digest_algo(),
+             digest_stamp_s=phases.get("integrity_digest_stamp", {}).get(
+                 "ms", 0.0) / 1e3,
+             digest_verify_s=phases.get("integrity_digest", {}).get(
+                 "ms", 0.0) / 1e3,
+             crc_recv_s=phases.get("integrity_crc_recv", {}).get(
+                 "ms", 0.0) / 1e3,
+             crc_send_s=phases.get("integrity_crc_send", {}).get(
+                 "ms", 0.0) / 1e3,
+             # What each candidate hash costs on this host, GB/s on one
+             # thread: the price of the digest and frame algorithms above
+             # and of their fallbacks on a host without xxhash.
+             hash_gbps=(integrity.hash_bench(256 << 20)
+                        if not without_xxhash else None),
+             loopback_raw_gbps=(loopback_gbps()
+                                if not without_xxhash else None),
+             staged_via_incremental_ingest=via_ingest, fallbacks=fallbacks,
+             precompile=[rec for rec, _ in warm],
+             boot_kind=res.kind, boot_via=res.via,
+             ttft_s=t_boot - t_startup, ttft_total_s=t_boot - t0,
+             boot_s=booted[2],
+             request_latency_s=latency,
+             # A request's decode ms/token, taking its prefill to cost what
+             # phase 3's direct warm prefill cost.
+             request_decode_ms_per_token=[
+                 (lat * 1e3 - direct["prefill"]) / (args.gen - 1)
+                 for lat in latency],
+             direct_generate_ms=direct,
+             served_ids_equal_phase3=True,
+             attention_launches_by_kernel=launches,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             allocated_at_start=allocated_at_start,
+             phase_wall_s=wall,
+             phases_ms={k: v["ms"] for k, v in phases.items()})
+    finally:
+        requester.close()
+        leader.close()
+        seeder.close()
+        dest.close()
+        for t in ts.values():
+            t.close()
+        _join_round_threads(threads_before)
+        os.environ.pop("DLD_BOOT_DONATE", None)
+        integrity._xxhash = host_xxhash
+
+
 def kernel_entry(fa, name, launches, case_stats, mixes, main_mix):
     """One ``kernels`` entry: the per-launch means of the main path's
     launch mix, or of phase 2's cases for a kernel the main path does not
@@ -749,11 +1030,15 @@ def main() -> int:
     card = phase_env(cuda_build, fa)
     case_stats, mixes = phase_kernel(fa, cfg, args.prompt, args.gen,
                                      args.long_prompt)
-    res, prompt, launches = phase_main(cfg, args, fa)
+    res, prompt, launches, fab = phase_main(cfg, args, fa)
     long_prompt = phase_long_serve(cfg, args, res)
     phase_parity(cfg, res, prompt, fa)
     phase_profile(cfg, res, prompt, "prompt")
     phase_profile(cfg, res, long_prompt, "long_prompt")
+    del res, long_prompt  # phase 3's model: freed before the round
+    torch.cuda.empty_cache()
+    phase_dissemination(cfg, args, fa, fab, prompt)
+    phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=True)
 
     main_mix = f"prompt{args.prompt}"
     print(json.dumps({"kernels": [

@@ -19,6 +19,10 @@ from .llama import ModelConfig
 from .serde import head_blob_id, head_param_specs, layer_param_specs
 
 CODECS = ("raw", "int8", "int4", "int8e", "int4e")
+# Entropy wire forms over the quantized bases (the JAX package's
+# ``models/entropy.py``); named here so config validation can refuse them
+# as canonical forms exactly as the JAX package does.
+ENTROPY_CODECS = {"int8e": "int8", "int4e": "int4"}
 
 
 def _require_raw(codec: str) -> None:
@@ -29,6 +33,19 @@ def _require_raw(codec: str) -> None:
             f"codec {codec!r} is not ported yet (ROADMAP, port Queue 2: "
             f"K2 int8 / K3 int4 dequant kernels)")
     raise ValueError(f"unknown codec {codec!r}; known: {CODECS}")
+
+
+def blob_nbytes_codec(cfg: ModelConfig, blob_id: int, codec: str) -> int:
+    """Exact wire size of a blob under ``codec``."""
+    _require_raw(codec)
+    return serde.blob_nbytes(cfg, blob_id)
+
+
+def encode_blob(cfg: ModelConfig, blob_id: int, raw: bytes,
+                codec: str) -> bytes:
+    """A raw blob's wire form under ``codec`` (raw: the bytes as given)."""
+    _require_raw(codec)
+    return raw
 
 
 def device_decode_jit(codec: str, donate: bool = False):

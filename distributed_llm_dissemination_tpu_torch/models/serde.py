@@ -182,7 +182,9 @@ def seeded_blob(cfg: ModelConfig, blob_id: int, seed: int = 0,
 
     The bytes differ from the JAX package's ``seeded_blob`` (threefry):
     a port seeder and a JAX seeder fabricate different weights from the
-    same seed.  Every port process agrees with every other."""
+    same seed.  Port seeders agree with each other only on one device
+    type: a CUDA generator and a CPU generator draw different bytes from
+    the same seed, so a seeder with a card and one without disagree."""
     dev = resolve_device(device)
     if not 0 <= blob_id <= head_blob_id(cfg):
         raise ValueError(f"blob {blob_id} out of range for {cfg.name}")

@@ -19,10 +19,14 @@ a 1-D uint8 CUDA tensor): their leaves are dtype views of the wire bytes
 set to ``None`` (``blob_donate_ok``) and its memory lives on only as
 long as the leaves that view it.
 
-The JAX package's ``ensure_compile_cache``/``precompile_boot`` have no
-counterpart: PyTorch runs eagerly and the one kernel is built once per
-process (``ops/cuda_build.py``).  Device placement across a pipeline
-stage's mesh waits for the fabric slice; a boot runs on one device.
+``precompile_boot`` is the counterpart of the JAX package's boot-hint
+warm-up: PyTorch runs eagerly, so instead of XLA compiles it pays the
+first-call set-up the cold boot would otherwise pay after startup (the
+attention kernels' libraries built and loaded, each kernel instance the
+boot and serving will launch launched once, the cuBLAS handle created).
+The JAX package's persistent compilation cache (``ensure_compile_cache``)
+has no counterpart.  Device placement across a pipeline stage's mesh
+waits for the fabric slice; a boot runs on one device.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 from ..core.types import LayerLocation, LayerMeta, LayerSrc, LayersSrc
 from ..models import llama, quant, serde
 from ..models.generate import generate
+from ..ops import flash_attention
 from ..utils import env as env_util
 from ..utils import integrity, trace
 from ..utils.device import resolve_device, synchronize
@@ -193,6 +198,62 @@ def decode_after_boot(cfg, res: BootResult, n: int, tokens=None,
     return toks
 
 
+# The boot's first forward runs over this many dummy tokens (see
+# ``boot_from_layers``); ``precompile_boot`` warms the same shape.
+BOOT_TOKENS = 16
+
+
+def precompile_boot(
+    cfg,
+    blob_ids: Sequence[int],
+    device=None,
+    codec: str = "raw",
+) -> dict:
+    """Warm the boot of the held set ``blob_ids`` BEFORE the bytes arrive
+    (a receiver starts it on ``BootHintMsg``, at distribution start), so
+    the boot after startup pays no first-call set-up.
+
+    On ``device`` (None = the CUDA card) it loads the three attention
+    kernel libraries (``ops/cuda_build``: built with ``nvcc`` on first
+    use), launches once each kernel instance that ``kernel_for`` picks for
+    ``cfg``'s prefill (the boot's ``BOOT_TOKENS``-token forward) and
+    decode (one token) shapes, and creates the cuBLAS handle with one
+    ``cfg.dtype`` product of the layer's shape.  On the CPU the same calls
+    take the plain paths.  (Blobs staged on the device decode to dtype
+    views, which need no warm-up.)  Returns ``{"compiled": [...],
+    "launches": {kernel: n}}`` naming what was warmed; an unported
+    ``codec`` raises.  A held set no boot shape accepts warms nothing."""
+    try:
+        classify_held_blobs(cfg, blob_ids)
+    except ValueError:
+        return {"compiled": [], "launches": {}}
+    dev = resolve_device(device)
+    quant.device_decode_jit(codec)  # raises for unported codecs
+    compiled = []
+    if dev.type == "cuda":
+        for name, source in flash_attention.SOURCES.items():
+            flash_attention._kernel(name)
+            compiled.append(f"library:{source}")
+    before = dict(flash_attention.launches_by_kernel)
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    g = cfg.n_heads // kvh
+    for sq in (BOOT_TOKENS, 1):
+        qg = torch.zeros((1, kvh, g, sq, hd), dtype=cfg.dtype, device=dev)
+        kv = torch.zeros((1, kvh, sq, hd), dtype=cfg.dtype, device=dev)
+        flash_attention.block_attention(qg, kv, kv, 0, 0)
+        compiled.append(f"attention:{flash_attention.kernel_for(sq, g, cfg.dtype)}"
+                        f":sq={sq}:hd={hd}")
+    x = torch.zeros((BOOT_TOKENS, cfg.d_model), dtype=cfg.dtype, device=dev)
+    w = torch.zeros((cfg.d_model, cfg.d_model), dtype=cfg.dtype, device=dev)
+    torch.mm(x, w)
+    compiled.append(f"matmul:{BOOT_TOKENS}x{cfg.d_model}x{cfg.d_model}")
+    synchronize(dev)
+    launches = {k: flash_attention.launches_by_kernel[k] - before[k]
+                for k in before
+                if flash_attention.launches_by_kernel[k] != before[k]}
+    return {"compiled": compiled, "launches": launches}
+
+
 def boot_from_layers(
     cfg,
     layers: LayersSrc,
@@ -277,6 +338,7 @@ def boot_from_layers(
             via = ("streamed per-layer" if not missing
                    else f"streamed per-layer (+{len(missing)} infilled)")
         except Exception as e:  # noqa: BLE001 -- bulk assembly still works
+            trace.count("fallback.stream_assembly_bulk")
             log.warn("streamed assembly failed; bulk assembly instead",
                      err=repr(e))
             stacked = None
@@ -311,7 +373,8 @@ def boot_from_layers(
             "lm_head": head["lm_head"],
         }
         if tokens is None:
-            tokens = torch.zeros((1, 16), dtype=torch.long, device=dev)
+            tokens = torch.zeros((1, BOOT_TOKENS), dtype=torch.long,
+                                 device=dev)
         logits = llama.forward(params, tokens, cfg, attention)
         synchronize(dev)
         # TTFT stops HERE: the decode below is serving time.

@@ -149,6 +149,7 @@ class StreamingBootStager:
             try:
                 leaves = self._stage_one(blob_id, src)
             except Exception as e:  # noqa: BLE001 -- the boot infills it
+                trace.count("fallback.stream_stage_infill")
                 log.warn("streamed boot staging failed for blob; the boot "
                          "will infill it", blobID=blob_id, err=repr(e))
             dt = time.monotonic() - t0

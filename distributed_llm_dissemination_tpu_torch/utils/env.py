@@ -17,3 +17,10 @@ def boot_donate_mode() -> str:
     if v == "1":
         return "force"
     return "auto"
+
+
+def stream_boot_enabled() -> bool:
+    """Per-layer receive-to-device streaming boot staging
+    (``runtime/stream_boot.py``), default ON; ``DLD_STREAM_BOOT=0``
+    disables it (the boot then assembles everything after startup)."""
+    return os.environ.get("DLD_STREAM_BOOT", "1") != "0"

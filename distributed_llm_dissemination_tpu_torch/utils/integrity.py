@@ -1,9 +1,5 @@
 """End-to-end payload integrity primitives (docs/integrity.md).
 
-Copy of the JAX package's ``utils/integrity.py`` (checksums, layer
-digests and the xxh3 -> crc32/blake2b negotiation); the frame drop-report
-helpers and ``hash_bench`` wait for the transport slice.
-
 The dissemination path moves physical-size layers through sockets, stripe
 regrouping, zero-copy placement, a crash-durable journal, and device
 staging — and historically never checksummed a byte anywhere: one flipped
@@ -225,6 +221,51 @@ def digest_matches(data, expected: str) -> bool:
     return ok is not False
 
 
+def report_corrupt_frame(on_corrupt, src_id, layer_id, offset: int,
+                         size: int, total: int, reason: str,
+                         stripe: str = "", silent: bool = False,
+                         dest_id=None) -> None:
+    """THE shared drop-report for both transports: one log wording (the
+    ttd harness greps it), one counter scheme, one ``on_corrupt`` firing
+    discipline — so inmem- and tcp-backed runs account corruption
+    identically.  ``silent`` counts+logs without firing the hook (the
+    regroup path reports the whole span itself).  ``dest_id``: the
+    dropping transport's bound node id, so the drop also lands on the
+    (src, dest) link of the telemetry flight recorder."""
+    from .logging import log
+    from . import telemetry, trace
+
+    extra = {"stripe": stripe} if stripe else {}
+    log.error("corrupt layer fragment dropped", layerID=layer_id,
+              offset=offset, size=size, reason=reason, **extra)
+    if reason == "stale":
+        trace.count("integrity.stale_prune")
+    else:
+        trace.count("integrity.crc_drop")
+        trace.count("integrity.crc_drop_bytes", size)
+        telemetry.link_add(src_id, dest_id, crc_drops=1,
+                           crc_drop_bytes=size)
+    if silent:
+        return
+    fire_on_corrupt(on_corrupt, src_id, layer_id, offset, size, total,
+                    reason)
+
+
+def fire_on_corrupt(on_corrupt, src_id, layer_id, offset: int, size: int,
+                    total: int, reason: str) -> None:
+    """The one ``on_corrupt`` firing discipline: a raising hook must
+    never wedge a receive path.  Used by ``report_corrupt_frame`` and by
+    the stripe-regroup span report (which logs/counts per stripe but
+    NACKs the whole logical span, so it fires the hook directly)."""
+    if on_corrupt is None:
+        return
+    from .logging import log
+    try:
+        on_corrupt(src_id, layer_id, offset, size, total, reason)
+    except Exception as e:  # noqa: BLE001 — reporting must not wedge rx
+        log.error("on_corrupt hook failed", err=repr(e))
+
+
 def digest_file_range(path: str, offset: int, size: int,
                       algo: Optional[str] = None) -> str:
     """Streaming layer digest over ``[offset, offset+size)`` of a file —
@@ -250,7 +291,19 @@ def digest_layer_src(src) -> Optional[str]:
     when the bytes aren't locally readable (CLIENT-held layers — the
     external client's bytes are outside this process).  Disk layers
     digest by streaming the file range; HBM-only layers materialize their
-    one cached host copy first (``ensure_host_bytes``)."""
+    one cached host copy first (``ensure_host_bytes``).  The time spent
+    is summed into the ``integrity_digest_stamp`` phase (holders digest
+    their layers this way to announce and stamp them)."""
+    from . import trace
+
+    t0 = time.monotonic()
+    try:
+        return _digest_layer_src(src)
+    finally:
+        trace.add_phase("integrity_digest_stamp", time.monotonic() - t0)
+
+
+def _digest_layer_src(src) -> Optional[str]:
     from ..core.types import LayerLocation
 
     loc = src.meta.location
@@ -295,3 +348,37 @@ def digest_layer_src_range(src, off: int, size: int) -> Optional[str]:
     except (OSError, ValueError):
         return None
     return None
+
+
+def hash_bench(nbytes: int = 64 << 20) -> dict:
+    """Micro-bench the candidate integrity hashes on THIS host — the
+    measured justification for the per-fragment and per-layer algorithm
+    choices (TTD_MATRIX.md records the numbers, and ``digest_algo`` /
+    ``fragment_checksum`` encode the conclusion).  Returns {name: GB/s};
+    xxh3 entries are 0.0 when the extension isn't importable."""
+    buf = memoryview(bytearray(os.urandom(1 << 20)) * (nbytes >> 20))
+
+    def rate(fn) -> float:
+        fn(buf[: 1 << 20])  # warm
+        t0 = time.monotonic()
+        fn(buf)
+        dt = time.monotonic() - t0
+        return round(len(buf) / max(dt, 1e-9) / 1e9, 2)
+
+    out = {
+        "bytes": len(buf),
+        "crc32_gbps": rate(lambda b: zlib.crc32(b)),
+        "adler32_gbps": rate(lambda b: zlib.adler32(b)),
+        "blake2b_gbps": rate(
+            lambda b: hashlib.blake2b(b, digest_size=DIGEST_SIZE).digest()),
+        "sha256_gbps": rate(lambda b: hashlib.sha256(b).digest()),
+        "xxh3_64_gbps": 0.0,
+        "xxh3_128_gbps": 0.0,
+    }
+    if _xxhash is not None:
+        out["xxh3_64_gbps"] = rate(lambda b: _xxhash.xxh3_64_intdigest(b))
+        out["xxh3_128_gbps"] = rate(
+            lambda b: _xxhash.xxh3_128_hexdigest(b))
+    out["fragment_algo"] = fragment_checksum(buf[:16])[0]
+    out["digest_algo"] = digest_algo()
+    return out

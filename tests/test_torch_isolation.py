@@ -24,12 +24,26 @@ from distributed_llm_dissemination_tpu_torch.models import llama as tllama
 from distributed_llm_dissemination_tpu_torch.models import serde as tserde
 from distributed_llm_dissemination_tpu_torch.ops import reassembly as tre
 from distributed_llm_dissemination_tpu_torch.parallel import ingest as ting
+from distributed_llm_dissemination_tpu_torch.parallel import mesh as tmesh
 from distributed_llm_dissemination_tpu_torch.parallel import mover as tmover
 from distributed_llm_dissemination_tpu_torch.runtime import boot as tboot
 from distributed_llm_dissemination_tpu_torch.runtime import stream_boot
 from distributed_llm_dissemination_tpu_torch.utils import device as tdevice
 
 PORT_DIR = pathlib.Path(port.__file__).parent
+# The control plane (carried over from the JAX package with its device
+# seams on this package): each must be among the modules imported below.
+CONTROL_PLANE = [
+    "core.config", "core.types", "native", "parallel.mesh",
+    "runtime.checkpoint", "runtime.client", "runtime.codec",
+    "runtime.failover", "runtime.failure", "runtime.leader",
+    "runtime.membership", "runtime.node", "runtime.policy",
+    "runtime.receiver", "runtime.rollout", "runtime.send", "runtime.store",
+    "runtime.swap", "sched.flow", "sched.jobs", "sched.native",
+    "transport.base", "transport.faults", "transport.inmem",
+    "transport.messages", "transport.tcp", "utils.backoff", "utils.buffers",
+    "utils.rate", "utils.telemetry", "utils.threads",
+]
 REPO = PORT_DIR.parent
 JAX_PACKAGE_IMPORT = re.compile(
     r"^\s*(from|import)\s+distributed_llm_dissemination_tpu(\.|\s|$)",
@@ -53,12 +67,15 @@ def test_every_port_module_imports_with_jax_blocked():
         "assert not any(k == 'jax' or k.startswith('jax.') for k, v in "
         "sys.modules.items() if v is not None)\n"
         "assert 'distributed_llm_dissemination_tpu' not in sys.modules\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=str(REPO), timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    assert int(proc.stdout.split()[-1]) >= 15
+    imported = set(proc.stdout.split())
+    assert len(imported) >= 15
+    missing = {f"{port.__name__}.{m}" for m in CONTROL_PLANE} - imported
+    assert not missing, missing
 
 
 def test_no_port_source_imports_jax_or_the_jax_package():
@@ -99,7 +116,25 @@ def _entry_points():
         "WeightMover": lambda: tmover.WeightMover(),
         "StreamingBootStager": lambda: stream_boot.StreamingBootStager(cfg),
         "boot_from_layers": lambda: tboot.boot_from_layers(cfg, layers),
+        "precompile_boot": lambda: tboot.precompile_boot(cfg, [0, 1, 2, 3, 4]),
+        "assignment_to_placement": lambda: tmesh.assignment_to_placement(
+            {2: {0: None}}),
+        "ReceiverNode(stage_hbm)": lambda: _receiver(stage_hbm=True),
+        "ReceiverNode(boot_cfg)": lambda: _receiver(boot_cfg=cfg),
     }
+
+
+def _receiver(**kwargs):
+    from distributed_llm_dissemination_tpu_torch.runtime import (
+        Node, ReceiverNode)
+    from distributed_llm_dissemination_tpu_torch.transport.inmem import (
+        InmemTransport)
+
+    t = InmemTransport("isolation-r", addr_registry={0: "isolation-l"})
+    try:
+        return ReceiverNode(Node(1, 0, t), {}, start_loop=False, **kwargs)
+    finally:
+        t.close()
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
