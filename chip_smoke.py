@@ -8,8 +8,9 @@ Phases, one JSON line each (any failure exits non-zero; no phase is
 caught):
 
 1. env: the card, torch/CUDA versions, and the build of every kernel
-   source under ``distributed_llm_dissemination_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together).
+   source under ``distributed_llm_dissemination_tpu_torch/csrc`` (the
+   three block-attention sources and the dequant source; one ``nvcc``
+   per source, all started together).
 2. kernel vs plain: each block-attention kernel (split-KV decode,
    tensor-core prefill, scalar f32) against its plain PyTorch version and
    an f64 oracle on every case shape it accepts, then the serving shapes
@@ -63,8 +64,38 @@ caught):
    served ids equal phase 3's.  A child that fails, outlives its bound or
    prints no result fails the phase; every child is killed on the way
    out.
+8. codec: the int8 and int4 wire codecs and their dequant kernels (K2
+   and K3, both in ``csrc/dequant.cu``).  First the
+   kernel cases: every ``--config`` blob encoded on the host by the
+   port's ``encode_blob`` under each codec (encode seconds per GB); on
+   layer blob 0 and the head blob each kernel equals its plain version
+   run on the card, bit for bit, and layer blob 0 also the port's CPU
+   host decode; synthetic leaves on the kernels' traps (unaligned scale
+   blocks, odd and non-128 columns, 1-D leaves, blobs at odd offsets) in
+   bf16 and f32 likewise; ms per launch by CUDA-graph replay beside the
+   bytes bound and the plain version's ms.  Then the entropy forms (int8e,
+   int4e) of layer blob 0 and the head blob, held on the card, stage
+   through the boot's device paths: the DLE1 pass on the host, the base
+   form through its kernel, one launch per blob and the plain version
+   never, the leaves equal to the base form's bit for bit.  Then phase 6's
+   round under
+   ``ModelCodec`` int8, then int4: the seeders hold the wire blobs, the
+   dest stages them on the card and boots through the kernel.  Checked:
+   the dest holds and received exactly the codec's wire bytes, every
+   digest verified, every blob staged via incremental ingest, no
+   fallback, the kernel launched once per blob plus its warm-up and the
+   plain version never, the attention launches as phase 6's, the booted
+   params equal to a plain decode on the card of the same wire blobs, and
+   ``REQUESTS`` served ids equal to a direct ``generate`` on those.  Then
+   a negotiated round: raw ``llama3-8b-d4v8k`` blobs, ``WireCodec`` int8
+   on every node and ``DLD_CODEC_MIN_RATE`` above the modelled links, so
+   the leader picks int8 for every pair and the senders encode on send.
+   Checked as above, plus: every pair chosen int8, every blob held in its
+   int8 form, the booted params equal to a raw boot of the blobs'
+   ``decode_to_raw``.
 
-Then the ``{"kernels": [...]}`` line, the card's name and power limit as
+Then the ``{"kernels": [...]}`` line (K1's three kernels, then K2 and K3),
+the script's wall time, the card's name and power limit as
 ``nvidia-smi`` prints them, and, last, the ``{"ok": true, ...}`` line.
 """
 
@@ -329,11 +360,11 @@ def attention_case(fa, b, kvh, g, sq, t, hd, q_off, k_off, dtype, seed,
 
 # ------------------------------------------------------------------ phases
 
-def phase_env(cuda_build, fa):
+def phase_env(cuda_build, fa, dq):
     import torch
 
     card = nvidia_smi()
-    sources = list(fa.SOURCES.values())
+    sources = list(fa.SOURCES.values()) + [dq.SOURCE]
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(cuda_build.build, sources))
@@ -833,18 +864,23 @@ def _join_round_threads(before, timeout_s: float = 30.0) -> None:
             t.join(max(0.0, deadline - time.monotonic()))
 
 
-def phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=False):
-    """One mode-3 round (module docstring, phase 6).  ``without_xxhash``:
-    every node of the round runs as on a host without the ``xxhash``
-    extension (crc32 frame checksums, blake2b-128 layer digests)."""
+def mode3_round(cfg, args, fa, prompt, blobs, boot_codec="raw", plane=None):
+    """One mode-3 round of phase 6's topology over loopback TCP: leader 0
+    and seeder 1 hold ``blobs`` (one shared host copy), cold dest 2
+    ingests them fragment by fragment into the card's memory, stages,
+    boots under ``boot_codec`` and answers ``REQUESTS`` greedy requests
+    for ``prompt`` from requester seat 3.  ``plane``: None, or a factory
+    of each node's wire-codec plane (as ``cli.main`` builds one).  The
+    kernel counts are zeroed just before and read just after.  Returns
+    what the callers check, with the nodes closed and their threads
+    joined."""
     import os
 
     import torch
 
     from distributed_llm_dissemination_tpu_torch.core.types import (
         LayerLocation, LayerMeta, LayerSrc, SourceType)
-    from distributed_llm_dissemination_tpu_torch.native import (
-        load_flow_solver)
+    from distributed_llm_dissemination_tpu_torch.ops import dequant as dq
     from distributed_llm_dissemination_tpu_torch.parallel.mesh import (
         assignment_to_placement)
     from distributed_llm_dissemination_tpu_torch.runtime import (
@@ -854,14 +890,9 @@ def phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=False):
     from distributed_llm_dissemination_tpu_torch.transport.tcp import (
         TcpTransport)
     from distributed_llm_dissemination_tpu_torch.utils import (
-        integrity, telemetry, trace)
+        telemetry, trace)
 
-    host_xxhash = integrity._xxhash
-    if without_xxhash:
-        integrity._xxhash = None
-    blobs = fab["blobs"]
     ids = sorted(blobs)
-    total = sum(len(b) for b in blobs.values())
 
     def holdings():
         # Leader and seeder share one host copy of each blob.
@@ -870,33 +901,40 @@ def phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=False):
                                              source_type=SourceType.MEM))
                 for lid in ids}
 
+    def codecs():
+        return plane() if plane is not None else None
+
     assignment = {2: {lid: LayerMeta() for lid in ids}}
     placement = assignment_to_placement(assignment)  # one card, one stage
     nic = {0: SEEDER_NIC, 1: SEEDER_NIC, 2: DEST_NIC}
-    # The boot keeps each staged blob's tensor referenced (its leaves view
-    # the same memory), so the byte check below reads what was staged.
+    # The boot keeps each staged blob's tensor referenced, so the callers'
+    # byte checks read what was staged.
     os.environ["DLD_BOOT_DONATE"] = "0"
     ts = {i: TcpTransport("127.0.0.1:0") for i in range(4)}
     for t in ts.values():
         t.addr_registry.update({i: u.addr for i, u in ts.items()})
-    solver = "native (C++)" if load_flow_solver() is not None else "python"
     gc.collect()  # an earlier round's nodes and tensors
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     allocated_at_start = torch.cuda.memory_allocated()
     threads_before = set(threading.enumerate())
     trace.reset_run()
-    fa.reset_counts()  # the round's counts start here
+    fa.reset_counts()
+    dq.reset_counts()  # the round's counts start here
     t_phase = time.monotonic()
     leader = FlowRetransmitLeaderNode(Node(0, 0, ts[0]), holdings(),
-                                      assignment, nic, expected_nodes={1, 2})
-    seeder = FlowRetransmitReceiverNode(Node(1, 0, ts[1]), holdings())
+                                      assignment, nic, expected_nodes={1, 2},
+                                      codecs=codecs())
+    seeder = FlowRetransmitReceiverNode(Node(1, 0, ts[1]), holdings(),
+                                        codecs=codecs())
     dest = FlowRetransmitReceiverNode(Node(2, 0, ts[2]), {}, stage_hbm=True,
-                                      placement=placement, boot_cfg=cfg)
+                                      placement=placement, boot_cfg=cfg,
+                                      boot_codec=boot_codec, codecs=codecs())
     requester = GenRequester(ts[3], my_id=3)
     try:
         seeder.announce()
         dest.announce()
+        t_call = time.monotonic()
         leader.start_distribution().get(timeout=300)
         t0 = time.monotonic()
         leader.ready().get(timeout=600)
@@ -909,88 +947,38 @@ def phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=False):
             served.append(requester.request(2, prompt[0].tolist(), args.gen,
                                             timeout=300))
             latency.append(time.monotonic() - t_req)
-        launches = dict(fa.launches_by_kernel)  # ...and are read here
-        wall = time.monotonic() - t_phase
-        counters = trace.counter_totals()
-        phases = trace.phase_totals()
-        links = telemetry.snapshot().get("links", {})
-
-        res = dest.boot_result
-        for lid in ids:
-            src = dest.layers[lid]
-            arr = src.device_array
-            check(src.meta.location == LayerLocation.HBM,
-                  f"blob {lid} at {src.meta.location!r}, not HBM")
-            check(isinstance(arr, torch.Tensor) and arr.is_cuda,
-                  f"blob {lid} is not a CUDA tensor")
-            host = torch.frombuffer(blobs[lid], dtype=torch.uint8).to("cuda")
-            check(torch.equal(arr, host), f"blob {lid} not byte-exact")
-            del host
-        via_ingest = counters.get("hbm_staged.incremental_ingest", 0)
-        check(via_ingest == len(ids),
-              f"{via_ingest} of {len(ids)} staged via incremental ingest")
-        fallbacks = {k: v for k, v in counters.items()
-                     if k.startswith("fallback.")}
-        check(not any(fallbacks.values()), f"fallbacks fired: {fallbacks}")
-        sent = {src: links.get(f"{src}->2", {}).get("tx_bytes", 0)
-                for src in (0, 1)}
-        check(all(sent.values()), f"a seeder sent nothing: {sent}")
-        check(sum(sent.values()) >= total, f"sent {sent} < {total} bytes")
-        warm = dest.precompile_records
-        check(len(warm) >= 1 and all(in_wire for _, in_wire in warm),
-              f"warm-up did not finish before startup: {warm}")
-        check(booted.keys() == {2} and res is not None and res.kind == "full",
-              f"boot {booted} kind {getattr(res, 'kind', None)}")
-        for ids_got in served:
-            check(ids_got == fab["tokens"],
-                  f"served ids {ids_got} != phase 3's {fab['tokens']}")
-        want = _expected_round_launches(fa, cfg, args, warm[0][0]["launches"])
-        check(launches == want, f"round launches {launches} != {want}")
-
-        ttd = t_startup - t0
-        direct = fab["serve_ms"]
-        emit("dissemination", config=cfg.name, mode=3, transport="tcp loopback",
-             xxhash=not without_xxhash,
-             blobs=len(ids), bytes=total, nic_bytes_per_s=nic,
-             solver=solver, ttd_s=ttd,
-             predicted_ttd_s=leader.predicted_ttd_ms / 1e3,
-             solve_ms=leader.solve_ms, wire_gbps=total / ttd / 1e9,
-             sent_bytes_by_source=sent,
-             frame_checksum=integrity.fragment_checksum(b"")[0],
-             digest_algo=integrity.digest_algo(),
-             digest_stamp_s=phases.get("integrity_digest_stamp", {}).get(
-                 "ms", 0.0) / 1e3,
-             digest_verify_s=phases.get("integrity_digest", {}).get(
-                 "ms", 0.0) / 1e3,
-             crc_recv_s=phases.get("integrity_crc_recv", {}).get(
-                 "ms", 0.0) / 1e3,
-             crc_send_s=phases.get("integrity_crc_send", {}).get(
-                 "ms", 0.0) / 1e3,
-             # What each candidate hash costs on this host, GB/s on one
-             # thread: the price of the digest and frame algorithms above
-             # and of their fallbacks on a host without xxhash.
-             hash_gbps=(integrity.hash_bench(256 << 20)
-                        if not without_xxhash else None),
-             loopback_raw_gbps=(loopback_gbps()
-                                if not without_xxhash else None),
-             staged_via_incremental_ingest=via_ingest, fallbacks=fallbacks,
-             precompile=[rec for rec, _ in warm],
-             boot_kind=res.kind, boot_via=res.via,
-             ttft_s=t_boot - t_startup, ttft_total_s=t_boot - t0,
-             boot_s=booted[2],
-             request_latency_s=latency,
-             # A request's decode ms/token, taking its prefill to cost what
-             # phase 3's direct warm prefill cost.
-             request_decode_ms_per_token=[
-                 (lat * 1e3 - direct["prefill"]) / (args.gen - 1)
-                 for lat in latency],
-             direct_generate_ms=direct,
-             served_ids_equal_phase3=True,
-             attention_launches_by_kernel=launches,
-             max_memory_allocated=torch.cuda.max_memory_allocated(),
-             allocated_at_start=allocated_at_start,
-             phase_wall_s=wall,
-             phases_ms={k: v["ms"] for k, v in phases.items()})
+        return {  # ...and are read here
+            "attention": dict(fa.launches_by_kernel),
+            "dequant": dict(dq.launches_by_kernel),
+            "plain": dict(dq.plain_calls),
+            "wall_s": time.monotonic() - t_phase,
+            "counters": trace.counter_totals(),
+            "phases": trace.phase_totals(),
+            "links": telemetry.snapshot().get("links", {}),
+            "nic": nic,
+            # TTD as the CLI defines it starts once start_distribution
+            # returns; before that the leader plans and, for negotiated
+            # pairs, encodes each blob it stamps a codec-qualified digest
+            # for.
+            "start_s": t0 - t_call,
+            "ttd_s": t_startup - t0, "ttft_s": t_boot - t_startup,
+            "ttft_total_s": t_boot - t0,
+            "predicted_ttd_s": leader.predicted_ttd_ms / 1e3,
+            "solve_ms": leader.solve_ms,
+            "booted": booted, "served": served, "latency": latency,
+            "peak": torch.cuda.max_memory_allocated(),
+            "allocated_at_start": allocated_at_start,
+            "warm": dest.precompile_records,
+            "res": dest.boot_result,
+            "held": {lid: dest.layers[lid] for lid in ids},
+            "digest_ok": set(dest._digest_ok),
+            "choices": dict(leader._codec_choice),
+            # The forms each sender encoded (its plane's size cache).
+            "encoded": {"leader": sorted(leader.codecs._sizes)
+                        if leader.codecs else [],
+                        "seeder": sorted(seeder.codec_plane._sizes)
+                        if seeder.codec_plane else []},
+        }
     finally:
         requester.close()
         leader.close()
@@ -1000,7 +988,116 @@ def phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=False):
             t.close()
         _join_round_threads(threads_before)
         os.environ.pop("DLD_BOOT_DONATE", None)
+
+
+def _sent_by_source(links):
+    return {src: links.get(f"{src}->2", {}).get("tx_bytes", 0)
+            for src in (0, 1)}
+
+
+def phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=False):
+    """One mode-3 round (module docstring, phase 6).  ``without_xxhash``:
+    every node of the round runs as on a host without the ``xxhash``
+    extension (crc32 frame checksums, blake2b-128 layer digests).
+    Returns the round's TTD."""
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.core.types import (
+        LayerLocation)
+    from distributed_llm_dissemination_tpu_torch.native import (
+        load_flow_solver)
+    from distributed_llm_dissemination_tpu_torch.utils import integrity
+
+    blobs = fab["blobs"]
+    ids = sorted(blobs)
+    total = sum(len(b) for b in blobs.values())
+    solver = "native (C++)" if load_flow_solver() is not None else "python"
+    host_xxhash = integrity._xxhash
+    if without_xxhash:
+        integrity._xxhash = None
+    try:
+        out = mode3_round(cfg, args, fa, prompt, blobs)
+        frame_checksum = integrity.fragment_checksum(b"")[0]
+        digest_algo = integrity.digest_algo()
+    finally:
         integrity._xxhash = host_xxhash
+    counters, phases, res = out["counters"], out["phases"], out["res"]
+    for lid in ids:
+        src = out["held"][lid]
+        arr = src.device_array
+        check(src.meta.location == LayerLocation.HBM,
+              f"blob {lid} at {src.meta.location!r}, not HBM")
+        check(isinstance(arr, torch.Tensor) and arr.is_cuda,
+              f"blob {lid} is not a CUDA tensor")
+        host = torch.frombuffer(blobs[lid], dtype=torch.uint8).to("cuda")
+        check(torch.equal(arr, host), f"blob {lid} not byte-exact")
+        del host
+    via_ingest = counters.get("hbm_staged.incremental_ingest", 0)
+    check(via_ingest == len(ids),
+          f"{via_ingest} of {len(ids)} staged via incremental ingest")
+    fallbacks = {k: v for k, v in counters.items()
+                 if k.startswith("fallback.")}
+    check(not any(fallbacks.values()), f"fallbacks fired: {fallbacks}")
+    sent = _sent_by_source(out["links"])
+    check(all(sent.values()), f"a seeder sent nothing: {sent}")
+    check(sum(sent.values()) >= total, f"sent {sent} < {total} bytes")
+    warm = out["warm"]
+    check(len(warm) >= 1 and all(in_wire for _, in_wire in warm),
+          f"warm-up did not finish before startup: {warm}")
+    check(out["booted"].keys() == {2} and res is not None
+          and res.kind == "full",
+          f"boot {out['booted']} kind {getattr(res, 'kind', None)}")
+    for ids_got in out["served"]:
+        check(ids_got == fab["tokens"],
+              f"served ids {ids_got} != phase 3's {fab['tokens']}")
+    launches = out["attention"]
+    want = _expected_round_launches(fa, cfg, args, warm[0][0]["launches"])
+    check(launches == want, f"round launches {launches} != {want}")
+
+    ttd = out["ttd_s"]
+    direct = fab["serve_ms"]
+    emit("dissemination", config=cfg.name, mode=3, transport="tcp loopback",
+         xxhash=not without_xxhash,
+         blobs=len(ids), bytes=total, nic_bytes_per_s=out["nic"],
+         solver=solver, ttd_s=ttd,
+         predicted_ttd_s=out["predicted_ttd_s"],
+         solve_ms=out["solve_ms"], wire_gbps=total / ttd / 1e9,
+         sent_bytes_by_source=sent,
+         frame_checksum=frame_checksum, digest_algo=digest_algo,
+         digest_stamp_s=phases.get("integrity_digest_stamp", {}).get(
+             "ms", 0.0) / 1e3,
+         digest_verify_s=phases.get("integrity_digest", {}).get(
+             "ms", 0.0) / 1e3,
+         crc_recv_s=phases.get("integrity_crc_recv", {}).get(
+             "ms", 0.0) / 1e3,
+         crc_send_s=phases.get("integrity_crc_send", {}).get(
+             "ms", 0.0) / 1e3,
+         # What each candidate hash costs on this host, GB/s on one
+         # thread: the price of the digest and frame algorithms above
+         # and of their fallbacks on a host without xxhash.
+         hash_gbps=(integrity.hash_bench(256 << 20)
+                    if not without_xxhash else None),
+         loopback_raw_gbps=(loopback_gbps()
+                            if not without_xxhash else None),
+         staged_via_incremental_ingest=via_ingest, fallbacks=fallbacks,
+         precompile=[rec for rec, _ in warm],
+         boot_kind=res.kind, boot_via=res.via,
+         ttft_s=out["ttft_s"], ttft_total_s=out["ttft_total_s"],
+         boot_s=out["booted"][2],
+         request_latency_s=out["latency"],
+         # A request's decode ms/token, taking its prefill to cost what
+         # phase 3's direct warm prefill cost.
+         request_decode_ms_per_token=[
+             (lat * 1e3 - direct["prefill"]) / (args.gen - 1)
+             for lat in out["latency"]],
+         direct_generate_ms=direct,
+         served_ids_equal_phase3=True,
+         attention_launches_by_kernel=launches,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         allocated_at_start=out["allocated_at_start"],
+         phase_wall_s=out["wall_s"],
+         phases_ms={k: v["ms"] for k, v in phases.items()})
+    return ttd
 
 
 def seeded_check(cfg, seed):
@@ -1241,6 +1338,413 @@ def phase_cli(cfg, args, fa, fab, prompt):
          phase_wall_s=wall)
 
 
+# ------------------------------------------------------------ phase 8
+
+CODEC_REPLACES = {
+    "int8": "distributed_llm_dissemination_tpu/models/quant.py:276",
+    "int4": "distributed_llm_dissemination_tpu/models/quant.py:305"}
+NEGOTIATED_CONFIG = "llama3-8b-d4v8k"  # llama3-8b-d4's layers, 8192-token head
+# Above every modelled link of the round (SEEDER_NIC, DEST_NIC), so the
+# leader picks the wire codec on loopback; pacing the wire down to the
+# plane's default threshold (64 MiB/s) would cost about 30 s.
+NEGOTIATE_MIN_RATE = 1 << 42
+# Synthetic leaves on the kernels' traps: scale blocks at offsets that are
+# not multiples of 4, odd cols (int4 rides them raw), cols that 128 does
+# not divide, 1-D and 3-D leaves, a 2-column leaf.
+TRAP_SPECS = (("a", (3, 5)), ("b", (7,)), ("c", (2, 3, 6)), ("d", (5, 130)),
+              ("e", (4, 256)), ("f", (3, 7)), ("g", (1, 2)), ("h", (2, 34)))
+
+
+def _bits(t):
+    import torch
+
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _to_card(data, shift=0):
+    """A wire blob on the card, starting ``shift`` bytes into its buffer."""
+    import torch
+
+    buf = torch.empty(len(data) + shift, dtype=torch.uint8, device="cuda")
+    buf[shift:].copy_(torch.frombuffer(data, dtype=torch.uint8))
+    return buf[shift:]
+
+
+def codec_kernel_case(dq, quant, kind, name, data, specs, dtype, shift=0,
+                      timed=False):
+    """K2/K3 (``kind``) against its plain version on the card on one wire
+    blob, bit for bit.  ``timed``: also the kernel's and the plain
+    version's device ms per call (CUDA-graph replay) and the bytes bound.
+    Returns (record, the kernel's leaves)."""
+    import torch
+
+    table = quant.leaf_table(kind, specs, dtype)
+    blob = _to_card(data, shift)
+    kern = [torch.empty(leaf.shape, dtype=dtype, device="cuda")
+            for leaf in table]
+    plain = [torch.empty_like(k) for k in kern]
+    ref = getattr(dq, f"dequant_{kind}_ref")
+    dq.dequant(kind, blob, table, kern)
+    ref(blob, table, plain)
+    torch.cuda.synchronize()
+    err = 0.0
+    for leaf, a, b in zip(table, kern, plain):
+        check(torch.equal(_bits(a), _bits(b)),
+              f"{kind} kernel != plain on {name}:{leaf.name}")
+        err = max(err, float((a.float() - b.float()).abs().max()))
+    decoded = sum(k.numel() * k.element_size() for k in kern)
+    rec = {"case": name, "kind": kind, "dtype": str(dtype).split(".")[-1],
+           "leaves": len(table), "wire_bytes": len(data),
+           "decoded_bytes": decoded, "blob_offset": shift,
+           "bit_exact": True, "max_abs_err": err}
+    if timed:
+        rec["ms"] = time_graph(lambda: dq.dequant(kind, blob, table, kern))
+        rec["plain_ms"] = time_graph(lambda: ref(blob, table, plain),
+                                     calls=2, replays=2)
+        rec["bound_ms"] = (len(data) + decoded) / HBM_BYTES_PER_S * 1e3
+        rec["bound_by"] = "bytes"
+        rec["library_ms"] = None  # no single PyTorch call decodes a blob
+    del blob, plain
+    return rec, kern
+
+
+def codec_kernels(cfg, quant, serde, dq, blobs):
+    """Phase 8's kernel cases (module docstring).  Returns (wire blobs by
+    codec, encode seconds by codec and blob, the cases)."""
+    import numpy as np
+    import torch
+
+    head = serde.head_blob_id(cfg)
+    wire, enc_s, cases = {}, {}, []
+    for kind in dq.KINDS:
+        wire[kind], enc_s[kind] = {}, {}
+        for lid in sorted(blobs):
+            t0 = time.monotonic()
+            wire[kind][lid] = bytearray(
+                quant.encode_blob(cfg, lid, blobs[lid], kind))
+            enc_s[kind][lid] = time.monotonic() - t0
+            check(len(wire[kind][lid]) == quant.blob_nbytes_codec(
+                cfg, lid, kind), f"{kind} blob {lid} size")
+        for lid, name in ((0, "layer"), (head, "head")):
+            rec, kern = codec_kernel_case(dq, quant, kind, name,
+                                          wire[kind][lid],
+                                          serde.blob_specs(cfg, lid),
+                                          cfg.dtype, timed=True)
+            if lid == 0:  # the card against the port's CPU host decode
+                host = quant.decode_blob_host(cfg, lid, wire[kind][lid], kind)
+                for (leaf_name, _), k in zip(serde.blob_specs(cfg, lid), kern):
+                    check(torch.equal(_bits(k.cpu()), _bits(host[leaf_name])),
+                          f"{kind} layer leaf {leaf_name} != host decode")
+                rec["equals_cpu_host_decode"] = True
+                del host
+            del kern
+            cases.append(rec)
+        rng = np.random.default_rng(3)
+        n = sum(int(np.prod(shape)) for _, shape in TRAP_SPECS)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+            raw = x.to(dtype).view(torch.uint8).numpy().tobytes()
+            data = bytearray(quant.encode_specs(TRAP_SPECS, dtype, raw, kind))
+            for shift in (0, 1, 2, 4, 8):
+                cases.append(codec_kernel_case(
+                    dq, quant, kind, "traps", data, TRAP_SPECS, dtype,
+                    shift=shift)[0])
+    torch.cuda.empty_cache()
+    return wire, enc_s, cases
+
+
+def entropy_staging(cfg, quant, serde, dq, wire):
+    """The entropy forms of layer blob 0 and the head blob, held on the
+    card, staged by the boot's device paths (``stage_blob_leaves``,
+    ``decode_head``): the DLE1 pass runs on the host, the base form on
+    its kernel.  Checked per blob: one launch of the base form's kernel,
+    none of the other and of the plain versions, and leaves equal bit for
+    bit to the kernel's decode of the base form (which the kernel cases
+    held against the plain version).  Returns a record per blob."""
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.core.types import (
+        LayerLocation, LayerMeta, LayerSrc)
+    from distributed_llm_dissemination_tpu_torch.models import entropy
+    from distributed_llm_dissemination_tpu_torch.runtime.boot import (
+        decode_head, stage_blob_leaves)
+
+    head = serde.head_blob_id(cfg)
+    recs = []
+    for kind in dq.KINDS:
+        ekind = kind + "e"
+        for lid, name in ((0, "layer"), (head, "head")):
+            t0 = time.monotonic()
+            enc = bytearray(entropy.encode(wire[kind][lid]))
+            encode_s = time.monotonic() - t0
+            src = LayerSrc(data_size=len(enc),
+                           meta=LayerMeta(location=LayerLocation.HBM,
+                                          codec=ekind))
+            src.device_array = _to_card(enc)
+            torch.cuda.synchronize()
+            dq.reset_counts()
+            t0 = time.monotonic()
+            if lid == head:
+                got = decode_head(cfg, src, ekind, device="cuda")
+            else:
+                got = {n: a[0] for n, a in stage_blob_leaves(
+                    cfg, lid, src, codec=ekind, device="cuda").items()}
+            torch.cuda.synchronize()
+            stage_s = time.monotonic() - t0
+            launches, plain = dict(dq.launches_by_kernel), dict(dq.plain_calls)
+            check(launches == {k: int(k == kind) for k in dq.KINDS},
+                  f"{ekind} {name}: kernel launches {launches}")
+            check(not any(plain.values()),
+                  f"{ekind} {name}: plain dequant ran: {plain}")
+            want = quant.decode_specs(_to_card(wire[kind][lid]),
+                                      serde.blob_specs(cfg, lid), cfg.dtype,
+                                      kind)
+            for leaf, a in want.items():
+                check(got[leaf].is_cuda and torch.equal(_bits(got[leaf]),
+                                                        _bits(a)),
+                      f"{ekind} {name}:{leaf} != the {kind} kernel's decode")
+            recs.append({"codec": ekind, "blob": name,
+                         "wire_bytes": len(enc),
+                         "base_bytes": len(wire[kind][lid]),
+                         "dle1_encode_s": encode_s, "stage_s": stage_s,
+                         "launches": launches, "plain_calls": plain,
+                         "equals_base_kernel_decode": True})
+            del enc, src, got, want
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _check_codec_round(fa, cfg, args, out, ids, wire_sizes, kind, warm_key):
+    """The checks both kinds of codec round share (module docstring)."""
+    counters = out["counters"]
+    for lid in ids:
+        src = out["held"][lid]
+        check(src.meta.location.name == "HBM", f"blob {lid} not on the card")
+        check(src.data_size == wire_sizes[lid],
+              f"blob {lid}: {src.data_size} B, wire form {wire_sizes[lid]}")
+    check(out["digest_ok"] >= set(ids), f"digests verified {out['digest_ok']}")
+    via_ingest = counters.get("hbm_staged.incremental_ingest", 0)
+    check(via_ingest == len(ids),
+          f"{via_ingest} of {len(ids)} staged via incremental ingest")
+    fallbacks = {k: v for k, v in counters.items() if k.startswith("fallback.")}
+    check(not any(fallbacks.values()), f"fallbacks fired: {fallbacks}")
+    delivered = sum(row.get("delivered_bytes", 0)
+                    for key, row in out["links"].items()
+                    if "#" not in key and key.endswith("->2"))
+    check(delivered == sum(wire_sizes.values()),
+          f"delivered {delivered} B != wire forms {sum(wire_sizes.values())}")
+    warm = out["warm"]
+    check(len(warm) >= 1 and all(in_wire for _, in_wire in warm),
+          f"warm-up did not finish before startup: {warm}")
+    res = out["res"]
+    check(out["booted"].keys() == {2} and res is not None
+          and res.kind == "full", f"boot {out['booted']}")
+    check(res.via == "streamed per-layer", f"via {res.via!r}")
+    want = len(ids) + warm[0][0]["launches"].get(warm_key, 0)
+    check(out["dequant"][kind] == want,
+          f"{kind} launches {out['dequant'][kind]} != {want}")
+    check(not any(out["plain"].values()),
+          f"plain dequant ran in the round: {out['plain']}")
+    att = _expected_round_launches(fa, cfg, args, warm[0][0]["launches"])
+    check(out["attention"] == att,
+          f"round attention launches {out['attention']} != {att}")
+    return delivered
+
+
+def _plain_params(cfg, serde, dq, quant, kind, wire):
+    """Params decoded on the card by the plain dequant from the wire
+    blobs: the reference the served ids are held against."""
+    import torch
+
+    L = serde.head_blob_id(cfg)
+    layers = {name: torch.empty((L, *shape), dtype=cfg.dtype, device="cuda")
+              for name, shape in serde.layer_param_specs(cfg)}
+    ref = getattr(dq, f"dequant_{kind}_ref")
+    for lid in range(L):
+        table = quant.leaf_table(kind, serde.layer_param_specs(cfg), cfg.dtype)
+        ref(_to_card(wire[lid]), table, [layers[t.name][lid] for t in table])
+    table = quant.leaf_table(kind, serde.head_param_specs(cfg), cfg.dtype)
+    head = {t.name: torch.empty(t.shape, dtype=cfg.dtype, device="cuda")
+            for t in table}
+    ref(_to_card(wire[L]), table, [head[t.name] for t in table])
+    return {"embed": head["embed"], "layers": layers, "ln_f": head["ln_f"],
+            "lm_head": head["lm_head"]}
+
+
+def _same_params(a, b):
+    """Booted params ``a`` bit for bit against the reference ``b``."""
+    import torch
+
+    pairs = [(name, a[name], b[name]) for name in ("embed", "ln_f", "lm_head")]
+    pairs += [(name, t, b["layers"][name]) for name, t in a["layers"].items()]
+    for name, x, y in pairs:
+        check(torch.equal(_bits(x), _bits(y)), f"booted {name} differs")
+
+
+def phase_codec(cfg, args, fa, fab, prompt, raw_ttd_s):
+    """Phase 8 (module docstring).  Returns the kernels-line numbers of
+    K2 and K3."""
+    import os
+
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.models import quant, serde
+    from distributed_llm_dissemination_tpu_torch.models.generate import (
+        generate)
+    from distributed_llm_dissemination_tpu_torch.models.llama import CONFIGS
+    from distributed_llm_dissemination_tpu_torch.ops import dequant as dq
+    from distributed_llm_dissemination_tpu_torch.runtime.codec import (
+        WireCodecPlane)
+
+    t_phase = time.monotonic()
+    blobs = fab["blobs"]
+    ids = sorted(blobs)
+    raw_bytes = sum(len(b) for b in blobs.values())
+    wire, enc_s, cases = codec_kernels(cfg, quant, serde, dq, blobs)
+    entropy_recs = entropy_staging(cfg, quant, serde, dq, wire)
+    head = serde.head_blob_id(cfg)
+    emit("codec_kernels", config=cfg.name, timing=TIMING,
+         encode_s_per_gb={kind: sum(s.values()) / (raw_bytes / 1e9)
+                          for kind, s in enc_s.items()},
+         encode_s={kind: {"layer0": s[0], "head": s[head],
+                          "all_blobs": sum(s.values())}
+                   for kind, s in enc_s.items()},
+         wire_bytes={kind: sum(len(b) for b in w.values())
+                     for kind, w in wire.items()},
+         raw_bytes=raw_bytes, cases=cases, entropy_staging=entropy_recs)
+    stats = {kind: {c["case"]: c for c in cases
+                    if c["kind"] == kind and "ms" in c} for kind in dq.KINDS}
+
+    rounds = {}
+    for kind in dq.KINDS:
+        out = mode3_round(cfg, args, fa, prompt, wire[kind], boot_codec=kind,
+                          plane=functools.partial(WireCodecPlane, cfg,
+                                                  model_codec=kind))
+        sizes = {lid: quant.blob_nbytes_codec(cfg, lid, kind) for lid in ids}
+        delivered = _check_codec_round(fa, cfg, args, out, ids, sizes, kind,
+                                       f"dequant_{kind}")
+        ref = _plain_params(cfg, serde, dq, quant, kind, wire[kind])
+        _same_params(out["res"].params, ref)
+        want = generate(ref, prompt, cfg, args.gen)[0].tolist()
+        for ids_got in out["served"]:
+            check(ids_got == want, f"{kind} served ids {ids_got} != {want}")
+        rounds[kind] = {
+            "launches": out["dequant"][kind],
+            "record": dict(
+                codec=kind, ttd_s=out["ttd_s"], start_s=out["start_s"],
+                ttft_after_startup_s=out["ttft_s"],
+                wire_bytes=delivered, raw_bytes=raw_bytes,
+                sent_bytes_by_source=_sent_by_source(out["links"]),
+                seeder_encode_s=sum(enc_s[kind].values()),
+                boot_decode_ms=out["phases"].get(
+                    "boot_stream_stage", {}).get("ms"),
+                boot_s=out["booted"][2], boot_via=out["res"].via,
+                request_latency_s=out["latency"],
+                dequant_launches=out["dequant"], plain_calls=out["plain"],
+                warm_up=[rec for rec, _ in out["warm"]],
+                attention_launches_by_kernel=out["attention"],
+                max_memory_allocated=out["peak"],
+                booted_params_equal_plain_decode=True,
+                served_ids_equal_plain_reference=True, served_ids=want)}
+        del out, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The negotiated round: raw canonicals, WireCodec int8, the threshold
+    # above the modelled links so the leader picks int8 on every pair.
+    ncfg = CONFIGS[NEGOTIATED_CONFIG]
+    t0 = time.monotonic()
+    nblobs = {i: bytearray(serde.seeded_blob(ncfg, i, seed=args.seed))
+              for i in range(serde.head_blob_id(ncfg) + 1)}
+    fabricate_s = time.monotonic() - t0
+    nids = sorted(nblobs)
+    nprompt = prompt % ncfg.vocab  # the 8192-token vocabulary
+    os.environ["DLD_CODEC_MIN_RATE"] = str(NEGOTIATE_MIN_RATE)
+    try:
+        out = mode3_round(ncfg, args, fa, nprompt, nblobs,
+                          plane=functools.partial(WireCodecPlane, ncfg,
+                                                  wire_codec="int8"))
+    finally:
+        os.environ.pop("DLD_CODEC_MIN_RATE", None)
+    check(all(out["choices"].get((2, lid)) == "int8" for lid in nids),
+          f"leader's codec choices {out['choices']}")
+    sizes = {lid: quant.blob_nbytes_codec(ncfg, lid, "int8") for lid in nids}
+    delivered = _check_codec_round(fa, ncfg, args, out, nids, sizes, "int8",
+                                   "dequant_int8")
+    for lid in nids:
+        check(out["held"][lid].meta.codec == "int8",
+              f"blob {lid} held as {out['held'][lid].meta.codec!r}")
+    # The reference: each delivered wire blob back to canonical raw bytes on
+    # the host (decode_to_raw), then a raw boot of those bytes.
+    raw_ref = {lid: quant.decode_to_raw(
+        ncfg, lid, out["held"][lid].device_array.cpu().numpy(), "int8")
+        for lid in nids}
+    ref = serde.params_from_blobs(ncfg, raw_ref)
+    ref = {k: ({n: t.cuda() for n, t in v.items()} if isinstance(v, dict)
+               else v.cuda()) for k, v in ref.items()}
+    _same_params(out["res"].params, ref)
+    want = generate(ref, nprompt, ncfg, args.gen)[0].tolist()
+    for ids_got in out["served"]:
+        check(ids_got == want, f"negotiated served ids {ids_got} != {want}")
+    encoded = out["counters"].get("codec.encoded_blobs", 0)
+    forms = sum(len(v) for v in out["encoded"].values())
+    negotiated = dict(
+        config=ncfg.name, wire_codec="int8",
+        codec_min_rate=NEGOTIATE_MIN_RATE, nic_bytes_per_s=[SEEDER_NIC,
+                                                            DEST_NIC],
+        pairs_chosen=out["counters"].get("codec.pairs_chosen", 0),
+        ttd_s=out["ttd_s"], start_s=out["start_s"],
+        ttd_from_start_call_s=out["start_s"] + out["ttd_s"],
+        raw_round_ttd_s=raw_ttd_s,
+        ttft_after_startup_s=out["ttft_s"],
+        fabricate_s=fabricate_s,
+        raw_bytes=sum(len(b) for b in nblobs.values()),
+        wire_bytes=delivered,
+        sent_bytes_by_source=_sent_by_source(out["links"]),
+        encode_s=out["phases"].get("codec_encode", {}).get("ms", 0.0) / 1e3,
+        encoded_blobs=encoded, encoded_forms=forms,
+        re_encodes=encoded - forms,
+        boot_decode_ms=out["phases"].get("boot_stream_stage", {}).get("ms"),
+        dequant_launches=out["dequant"], plain_calls=out["plain"],
+        request_latency_s=out["latency"],
+        max_memory_allocated=out["peak"],
+        booted_params_equal_decode_to_raw_boot=True,
+        served_ids_equal_reference=True)
+    del out, ref, raw_ref, nblobs
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("codec", rounds={k: r["record"] for k, r in rounds.items()},
+         negotiated=negotiated, phase_wall_s=time.monotonic() - t_phase)
+    return {kind: {"launches": rounds[kind]["launches"],
+                   "layer": stats[kind]["layer"], "head": stats[kind]["head"]}
+            for kind in dq.KINDS}
+
+
+def codec_kernel_entry(dq, kind, st):
+    """One ``kernels`` entry for K2/K3: the layer blob's numbers, the head
+    blob's beside them."""
+    layer = st["layer"]
+    return {
+        "name": f"dequant_{kind}",
+        "route": "cuda",
+        "source": CSRC + dq.SOURCE,
+        "replaces": CODEC_REPLACES[kind],
+        "launches": st["launches"],
+        "max_abs_err": max(layer["max_abs_err"], st["head"]["max_abs_err"]),
+        "ms": layer["ms"],
+        "plain_ms": layer["plain_ms"],
+        "bound_ms": layer["bound_ms"],
+        "bound_by": layer["bound_by"],
+        "library_ms": None,
+        "numbers_from": "llama3-8b-d4 layer blob 0; launches from phase 8's "
+                        f"ModelCodec {kind} round",
+        "timing": TIMING,
+        "head_blob": {k: st["head"][k] for k in
+                      ("ms", "plain_ms", "bound_ms", "wire_bytes",
+                       "decoded_bytes")},
+    }
+
+
 def kernel_entry(fa, name, launches, case_stats, mixes, main_mix):
     """One ``kernels`` entry: the per-launch means of the main path's
     launch mix, or of phase 2's cases for a kernel the main path does not
@@ -1284,10 +1788,11 @@ def main() -> int:
         return 2
     from distributed_llm_dissemination_tpu_torch.models.llama import CONFIGS
     from distributed_llm_dissemination_tpu_torch.ops import (
-        cuda_build, flash_attention as fa)
+        cuda_build, dequant as dq, flash_attention as fa)
 
+    t_script = time.monotonic()
     cfg = CONFIGS[args.config]
-    card = phase_env(cuda_build, fa)
+    card = phase_env(cuda_build, fa, dq)
     case_stats, mixes = phase_kernel(fa, cfg, args.prompt, args.gen,
                                      args.long_prompt)
     res, prompt, launches, fab = phase_main(cfg, args, fa)
@@ -1297,14 +1802,18 @@ def main() -> int:
     phase_profile(cfg, res, long_prompt, "long_prompt")
     del res, long_prompt  # phase 3's model: freed before the round
     torch.cuda.empty_cache()
-    phase_dissemination(cfg, args, fa, fab, prompt)
+    raw_ttd_s = phase_dissemination(cfg, args, fa, fab, prompt)
     phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=True)
     phase_cli(cfg, args, fa, fab, prompt)
+    codec_stats = phase_codec(cfg, args, fa, fab, prompt, raw_ttd_s)
 
     main_mix = f"prompt{args.prompt}"
     print(json.dumps({"kernels": [
         kernel_entry(fa, name, launches, case_stats, mixes, main_mix)
-        for name in fa.SOURCES]}), flush=True)
+        for name in fa.SOURCES] + [
+        codec_kernel_entry(dq, kind, st) for kind, st in codec_stats.items()]
+    }), flush=True)
+    emit("script", wall_s=time.monotonic() - t_script)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 Copy of the JAX package's ``core/config.py`` (same schema, same parse
 rules).  Its lazy model imports reach this package's ``models/``: seeded
-blobs come from ``serde.seeded_blob`` on ``create_layers``' ``device``, and
-an ``hf:`` model or a non-raw codec raises ``NotImplementedError`` until
-those modules are ported.
+blobs come from ``serde.seeded_blob`` on ``create_layers``' ``device`` and
+are encoded under ``ModelCodec`` by ``quant.encode_blob``; an ``hf:`` model
+raises ``NotImplementedError`` until the checkpoint loader is ported.
 
 Mirrors ``cmd/config.go:14-45``: one JSON file holds the
 node list (addr, leader bit, NIC bandwidth, per-source rate limits, initial

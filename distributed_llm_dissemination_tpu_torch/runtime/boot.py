@@ -13,8 +13,13 @@ Two boot shapes, chosen by what the node holds:
   stacked params run over dummy activations.
 
 Assembly prefers blobs already on the device (``LayerSrc.device_array``,
-a 1-D uint8 CUDA tensor): their leaves are dtype views of the wire bytes
-(``models/serde.decode_device``), so the bytes never return to the host.
+a 1-D uint8 CUDA tensor), so the bytes never return to the host: a raw
+blob's leaves are dtype views of the wire bytes
+(``models/serde.decode_device``), an int8/int4 blob decodes through the
+dequant kernels (``ops/dequant.py``, one launch per blob).  The DLE1
+layer of an entropy form has no device decode: it unwraps on the host and
+the base form goes back to the device for its kernel (the JAX package
+decodes such a blob wholly on the host).
 "Donation" is reference release: a consumed blob's ``device_array`` is
 set to ``None`` (``blob_donate_ok``) and its memory lives on only as
 long as the leaves that view it.
@@ -22,8 +27,9 @@ long as the leaves that view it.
 ``precompile_boot`` is the counterpart of the JAX package's boot-hint
 warm-up: PyTorch runs eagerly, so instead of XLA compiles it pays the
 first-call set-up the cold boot would otherwise pay after startup (the
-attention kernels' libraries built and loaded, each kernel instance the
-boot and serving will launch launched once, the cuBLAS handle created).
+attention kernels' libraries and the boot codec's dequant library built
+and loaded, each kernel instance the boot and serving will launch launched
+once, the cuBLAS handle created).
 The JAX package's persistent compilation cache (``ensure_compile_cache``)
 has no counterpart.  Device placement across a pipeline stage's mesh
 waits for the fabric slice; a boot runs on one device.
@@ -40,7 +46,7 @@ import torch
 from ..core.types import LayerLocation, LayerMeta, LayerSrc, LayersSrc
 from ..models import llama, quant, serde
 from ..models.generate import generate
-from ..ops import flash_attention
+from ..ops import dequant, flash_attention
 from ..utils import env as env_util
 from ..utils import integrity, trace
 from ..utils.device import resolve_device, synchronize
@@ -142,14 +148,20 @@ def stage_blob_leaves(cfg, blob_id: int, src, codec: str = "raw",
     """ONE blob's share of the boot: its decoded leaves on ``device``,
     each with a leading length-1 axis so assembly is a per-leaf concat.
     The shared per-blob staging of the streaming stager and the boot's
-    infill.  Device blobs decode to views of their bytes (and are
-    released when ``blob_donate_ok``); host blobs decode on the host and
-    are copied to the device."""
+    infill.  Device blobs decode on the device (``quant.device_decode_jit``:
+    dtype views for raw, the dequant kernels for int8/int4) and are
+    released when ``blob_donate_ok``; an entropy form's device blob
+    unwraps on the host and its base form decodes on the device
+    (``_unwrapped_on_device``); host blobs decode on the host and are
+    copied to the device."""
     specs = tuple(serde.blob_specs(cfg, blob_id))
     arr = _device_blob(src)
     if arr is not None:
+        donate = blob_donate_ok(src)
+        if codec in quant.ENTROPY_CODECS:
+            codec, arr = _unwrapped_on_device(codec, arr)
         leaves = quant.device_decode_jit(codec)((arr,), specs, cfg.dtype)
-        if blob_donate_ok(src):
+        if donate:
             src.device_array = None
         return leaves
     dev = resolve_device(device)
@@ -157,14 +169,26 @@ def stage_blob_leaves(cfg, blob_id: int, src, codec: str = "raw",
     return {name: host[name][None].to(dev) for name, _ in specs}
 
 
+def _unwrapped_on_device(codec: str, arr: torch.Tensor):
+    """An entropy form's device blob peeled to its quantized base:
+    ``(base codec, base blob on arr's device)``.  The DLE1 pass has no
+    device decode, so only it runs on the host; the base form goes back
+    to the device for its kernel (K2/K3)."""
+    base, data = quant.host_unwrap(codec, arr.cpu().numpy())
+    return base, serde._host_u8(data).to(arr.device)
+
+
 def decode_head(cfg, src, codec: str = "raw", donate: bool = False,
                 device=None) -> Dict[str, torch.Tensor]:
     """embed/ln_f/lm_head leaves from a head-blob ``LayerSrc`` on
-    ``device``: views of the device blob when it is resident, else a
-    host decode copied over.  ``donate``: release the record's device
-    copy (its host copy serves later readers)."""
+    ``device``: decoded on the device when the blob is resident there (an
+    entropy form unwrapped on the host first, as ``stage_blob_leaves``
+    does), else a host decode copied over.  ``donate``: release the
+    record's device copy (its host copy serves later readers)."""
     dev = _device_blob(src)
     if dev is not None:
+        if codec in quant.ENTROPY_CODECS:
+            codec, dev = _unwrapped_on_device(codec, dev)
         out = quant.head_from_device(cfg, dev, codec, donate=donate)
         if donate:
             src.device_array = None
@@ -218,23 +242,42 @@ def precompile_boot(
     use), launches once each kernel instance that ``kernel_for`` picks for
     ``cfg``'s prefill (the boot's ``BOOT_TOKENS``-token forward) and
     decode (one token) shapes, and creates the cuBLAS handle with one
-    ``cfg.dtype`` product of the layer's shape.  On the CPU the same calls
-    take the plain paths.  (Blobs staged on the device decode to dtype
-    views, which need no warm-up.)  Returns ``{"compiled": [...],
-    "launches": {kernel: n}}`` naming what was warmed; an unported
-    ``codec`` raises.  A held set no boot shape accepts warms nothing."""
+    ``cfg.dtype`` product of the layer's shape.  For an int8/int4
+    ``codec`` it also loads that codec's dequant library and decodes one
+    small blob with it (raw blobs decode to dtype views, which need no
+    warm-up).  On the CPU the same calls take the plain paths.  Returns
+    ``{"compiled": [...], "launches": {kernel: n}}`` naming what was
+    warmed; a codec with no device decode raises.  A held set no boot
+    shape accepts warms nothing."""
     try:
         classify_held_blobs(cfg, blob_ids)
     except ValueError:
         return {"compiled": [], "launches": {}}
     dev = resolve_device(device)
-    quant.device_decode_jit(codec)  # raises for unported codecs
+    quant.device_decode_jit(codec)  # raises for a codec without one
     compiled = []
     if dev.type == "cuda":
         for name, source in flash_attention.SOURCES.items():
             flash_attention._kernel(name)
             compiled.append(f"library:{source}")
     before = dict(flash_attention.launches_by_kernel)
+    launches = {}
+    if codec in dequant.KINDS:
+        if dev.type == "cuda":
+            dequant._kernel(codec)
+            compiled.append(f"library:{dequant.SOURCE}")
+        table = quant.leaf_table(codec, (("warm", (2, 2 * dequant.RUN)),),
+                                 cfg.dtype)
+        blob = torch.zeros(sum(leaf.nbytes for leaf in table),
+                           dtype=torch.uint8, device=dev)
+        outs = [torch.empty(leaf.shape, dtype=cfg.dtype, device=dev)
+                for leaf in table]
+        # The wrapper's own count of this call's launches, not the global
+        # count: the streaming stager may launch the same kernel meanwhile.
+        n = dequant.dequant(codec, blob, table, outs)
+        if n:
+            launches[f"dequant_{codec}"] = n
+        compiled.append(f"dequant:{codec}")
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
     g = cfg.n_heads // kvh
     for sq in (BOOT_TOKENS, 1):
@@ -248,10 +291,26 @@ def precompile_boot(
     torch.mm(x, w)
     compiled.append(f"matmul:{BOOT_TOKENS}x{cfg.d_model}x{cfg.d_model}")
     synchronize(dev)
-    launches = {k: flash_attention.launches_by_kernel[k] - before[k]
-                for k in before
-                if flash_attention.launches_by_kernel[k] != before[k]}
+    launches.update({k: flash_attention.launches_by_kernel[k] - before[k]
+                     for k in before
+                     if flash_attention.launches_by_kernel[k] != before[k]})
     return {"compiled": compiled, "launches": launches}
+
+
+def _normalized(cfg, layers: LayersSrc, lids: Sequence[int]) -> LayersSrc:
+    """``layers`` with the wire-codec holdings ``lids`` replaced by their
+    canonical raw bytes (a host decode, ``quant.decode_to_raw``); a local
+    overlay -- the receiver's store keeps the encoded holdings it serves."""
+    if not lids:
+        return layers
+    layers = dict(layers)
+    for lid in lids:
+        src = layers[lid]
+        raw = quant.decode_to_raw(cfg, lid, src.read_bytes(), src.meta.codec)
+        layers[lid] = LayerSrc(inmem_data=bytearray(raw), data_size=len(raw),
+                               meta=LayerMeta(location=LayerLocation.INMEM))
+    log.info("normalized wire-codec blobs for bulk assembly", blobs=list(lids))
+    return layers
 
 
 def boot_from_layers(
@@ -270,7 +329,7 @@ def boot_from_layers(
     the CUDA card) and run one forward.
 
     ``layers``: the receiver's store after dissemination.  ``codec``: the
-    transfer codec of the blobs (raw only in this port so far).
+    transfer codec of the blobs.
     ``stager``: a ``runtime.stream_boot.StreamingBootStager`` that has been
     staging blobs as they arrived; when it covers every layer blob,
     assembly is one device-local concat per leaf -- bit-identical to the
@@ -289,34 +348,26 @@ def boot_from_layers(
             verify_blob_digest(lid, layers[lid], digest_lookup,
                                digest_verified)
 
-    # Wire-codec holdings delivered under a codec other than the run's are
-    # normalised to canonical raw bytes on the host first, so every path
-    # below sees one codec.
+    # Wire-codec holdings delivered under a codec other than the run's:
+    # the stager decoded those it staged under their own codec; any that
+    # reach the infill or bulk paths are normalised to canonical raw bytes
+    # on the host first, so those paths see one codec.
     held = layer_ids + ([head_id] if head_id in layers else [])
-    mixed = [lid for lid in held
-             if layers[lid].meta.codec and layers[lid].meta.codec != codec]
-    if mixed:
-        layers = dict(layers)
-        for lid in mixed:
-            src = layers[lid]
-            raw = quant.decode_to_raw(cfg, lid, src.read_bytes(),
-                                      src.meta.codec)
-            layers[lid] = LayerSrc(
-                inmem_data=bytearray(raw), data_size=len(raw),
-                meta=LayerMeta(location=LayerLocation.INMEM))
-        log.info("normalized wire-codec blobs for bulk assembly",
-                 blobs=mixed)
-
-    # Assembly: streamed per-layer leaves splice with one concat per leaf;
-    # otherwise device blobs decode in place; otherwise host blobs decode
-    # on the host and go up once per leaf-stack.
-    dev_blobs = {lid: _device_blob(layers[lid]) for lid in held}
     streamed: Dict[int, dict] = {}
     stream_wait_s = 0.0
     if stager is not None:
         t_w = time.monotonic()
         streamed = stager.collect(held)
         stream_wait_s = time.monotonic() - t_w
+    mixed = [lid for lid in held
+             if layers[lid].meta.codec and layers[lid].meta.codec != codec]
+    layers = _normalized(cfg, layers,
+                         [lid for lid in mixed if lid not in streamed])
+
+    # Assembly: streamed per-layer leaves splice with one concat per leaf;
+    # otherwise device blobs decode in place; otherwise host blobs decode
+    # on the host and go up once per leaf-stack.
+    dev_blobs = {lid: _device_blob(layers[lid]) for lid in held}
     stacked = None
     via = ""
     if streamed:
@@ -342,12 +393,16 @@ def boot_from_layers(
             log.warn("streamed assembly failed; bulk assembly instead",
                      err=repr(e))
             stacked = None
+            layers = _normalized(cfg, layers, [lid for lid in mixed
+                                               if layers[lid].meta.codec])
+            dev_blobs = {lid: _device_blob(layers[lid]) for lid in held}
     if stacked is None and all(dev_blobs[lid] is not None
                                for lid in layer_ids):
         donate = all(blob_donate_ok(layers[lid]) for lid in layer_ids)
         stacked = quant.stacked_from_device(
             cfg, [dev_blobs[lid] for lid in layer_ids], codec, donate=donate)
-        via = "device bitcast"
+        via = ("device bitcast" if codec == "raw"
+               else f"device {codec} dequant")
         if donate:
             for lid in layer_ids:
                 layers[lid].device_array = None

@@ -21,11 +21,8 @@ Everything degrades to raw: a plane that can't encode a layer (size
 mismatch — dummy bytes, not model blobs), a dest that never advertised
 the codec, or a missing model config all leave the transfer canonical.
 
-Copy of the JAX package's ``runtime/codec.py``.  The quantized and
-entropy forms are not ported yet (``models/quant.py`` raises
-``NotImplementedError`` for them; ROADMAP, port Queue 1 item 3), so this
-plane announces no decode capability and never chooses a codec: a port
-node is always a raw peer, which every JAX leader already handles.
+Copy of the JAX package's ``runtime/codec.py``; its lazy imports reach
+this package's ``models/quant.py`` and ``models/entropy.py``.
 """
 
 from __future__ import annotations
@@ -41,6 +38,7 @@ from ..core.types import (
     LayerMeta,
     LayerSrc,
     codec_capability,
+    delta_base_digest,
 )
 from ..utils import integrity, trace
 from ..utils.logging import log
@@ -127,7 +125,9 @@ class WireCodecPlane:
         """Whether this run may CHOOSE quantized transfers (leader
         side).  Capability (decode/serve) is independent — see
         :meth:`decode_codecs`."""
-        return False  # no codec is ported yet (module docstring)
+        return (self.wire_codec in WHOLE_FORM_CODECS
+                and self.model_codec == "raw"
+                and os.environ.get("DLD_WIRE_CODEC", "1") != "0")
 
     @property
     def delta_enabled(self) -> bool:
@@ -136,7 +136,9 @@ class WireCodecPlane:
         dest PROVABLY holds the base, so there is no cold-start
         regression to opt out of — env-gated for operators who want the
         old behavior (``DLD_DELTA_CODEC=0``)."""
-        return False  # the delta coder is not ported yet
+        return (self.model_codec == "raw"
+                and os.environ.get("DLD_WIRE_CODEC", "1") != "0"
+                and os.environ.get("DLD_DELTA_CODEC", "1") != "0")
 
     def decode_codecs(self) -> List[str]:
         """The codecs this process can DECODE (and encode — quantized
@@ -145,7 +147,10 @@ class WireCodecPlane:
         entropy coder + a verified base), announced to the leader.
         Empty when the canonical form isn't raw (a decoded int8-of-int8
         blob would be meaningless) or the plane is env-disabled."""
-        return []  # no codec is ported yet: a raw peer (module docstring)
+        if (self.model_codec != "raw"
+                or os.environ.get("DLD_WIRE_CODEC", "1") == "0"):
+            return []
+        return list(WHOLE_FORM_CODECS) + ["delta"]
 
     def min_rate_for(self, codec: str) -> int:
         """The negotiation threshold for ``codec``'s family: a pair only
@@ -318,18 +323,56 @@ class WireCodecPlane:
 
     def _delta_bytes(self, lid: LayerID, raw,
                      codec: str) -> Optional[bytearray]:
-        """Encode ``raw`` against the base the codec string names (the
-        JAX package's content delta; its entropy coder is not ported)."""
-        raise NotImplementedError(
-            "delta codec: the entropy coder is not ported yet (ROADMAP, "
-            "port Queue 1 item 3)")
+        """Encode ``raw`` against the base the codec string names.  The
+        sender must hold a VERIFIED copy of the base — encoding against
+        unverified bytes would ship a well-formed delta that
+        reconstructs garbage (caught by the full-form digest, but only
+        after burning the transfer)."""
+        from ..models import entropy
+
+        base_digest = delta_base_digest(codec)
+        base = self.resolve_base(base_digest)
+        if base is None:
+            log.warn("delta encode refused: base not held/verified "
+                     "here", layerID=lid, base=base_digest)
+            return None
+        try:
+            base_raw = base.read_range()
+        except (OSError, ValueError) as e:
+            log.error("delta encode: base bytes unreadable",
+                      layerID=lid, base=base_digest, err=repr(e))
+            return None
+        if len(base_raw) != len(raw):
+            log.warn("delta encode refused: base length mismatch",
+                     layerID=lid, base=base_digest,
+                     base_bytes=len(base_raw), layer_bytes=len(raw))
+            return None
+        return bytearray(entropy.delta_encode(raw, base_raw))
 
     def delta_reconstruct(self, lid: LayerID, data,
                           codec: str) -> Optional[bytes]:
-        """Receiver side of the content delta (not ported yet)."""
-        raise NotImplementedError(
-            "delta codec: the entropy coder is not ported yet (ROADMAP, "
-            "port Queue 1 item 3)")
+        """Receiver side: full raw bytes from a delivered delta stream —
+        the base comes from THIS node's verified holdings (the leader
+        only stamps a delta when the dest provably holds the base, so a
+        miss here means local state regressed; None sends the pair back
+        for a raw replan)."""
+        from ..models import entropy
+
+        base_digest = delta_base_digest(codec)
+        base = self.resolve_base(base_digest)
+        if base is None:
+            log.warn("delta reconstruct refused: base not held here",
+                     layerID=lid, base=base_digest)
+            return None
+        try:
+            base_raw = base.read_range()
+            out = entropy.delta_decode(data, base_raw)
+        except (OSError, ValueError) as e:
+            log.error("delta reconstruct failed", layerID=lid,
+                      base=base_digest, err=repr(e))
+            return None
+        trace.count("codec.delta_reconstructed")
+        return out
 
     # -------------------------------------------------------------- identity
 

@@ -541,20 +541,35 @@ class SubLeaderController:
                         fresh.setdefault(lid, []).append((member, meta))
                     else:
                         due.append((member, lid, meta))
+        landed = False
         for lid in sorted(fresh):
             pairs = fresh[lid]
             if len(pairs) < 2:
                 due.extend((m, lid, meta) for m, meta in pairs)
                 continue
-            if not self._dispatch_chain(lid, pairs):
-                # Not servable yet (layer in flight / wrong form /
-                # members want mixed forms): un-claim so the next
-                # trigger re-collects; mixed forms degrade to star.
-                with self._lock:
-                    for m, _ in pairs:
-                        self._sent.pop((m, lid), None)
+            with self.receiver._lock:
+                held = lid in self.receiver.layers
+            if held and self._dispatch_chain(lid, pairs):
+                continue
+            # Not servable (layer in flight / wrong form / members want
+            # mixed forms): un-claim so the next trigger re-collects.
+            with self._lock:
+                for m, _ in pairs:
+                    self._sent.pop((m, lid), None)
+            if held:
+                # A holding the chain cannot serve: mixed forms degrade
+                # to star.
                 self._fan_out_star(due=[], retry=pairs, lid=lid)
+                continue
+            # In flight: its landing fires the own-layer trigger, which
+            # chains these pairs -- unless it landed while they were
+            # claimed here and that trigger passed them over.  Then
+            # chain them now: a first dispatch never falls to the star.
+            with self.receiver._lock:
+                landed = landed or lid in self.receiver.layers
         self._fan_out_star(due)
+        if landed:
+            self._fan_out_ready()
 
     def _fan_out_star(self, due, retry=None, lid=None) -> None:
         """The direct-send leg: dispatch each (member, lid, meta) whose

@@ -224,9 +224,29 @@ def test_precompile_boot_on_the_cpu_returns_its_record(tiny):
         f"matmul:{tboot.BOOT_TOKENS}x{tcfg.d_model}x{tcfg.d_model}"]
     assert tboot.precompile_boot(tcfg, [0, 2], device="cpu") == {
         "compiled": [], "launches": {}}
-    with pytest.raises(NotImplementedError, match="int8"):
-        tboot.precompile_boot(tcfg, sorted(blobs), device="cpu",
-                              codec="int8")
+    rec = tboot.precompile_boot(tcfg, sorted(blobs), device="cpu",
+                                codec="int8")
+    assert rec["launches"] == {}
+    assert rec["compiled"][0] == "dequant:int8"
+
+
+@pytest.mark.cuda
+def test_precompile_boot_on_the_card_counts_its_dequant_launch(tiny):
+    """The warm-up records the dequant launch the wrapper counted, and
+    that count equals the global count's change."""
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from distributed_llm_dissemination_tpu_torch.ops import dequant
+
+    _, tcfg, blobs = tiny
+    for codec in ("int8", "int4"):
+        before = dequant.launches_by_kernel[codec]
+        rec = tboot.precompile_boot(tcfg, sorted(blobs), device="cuda",
+                                    codec=codec)
+        assert rec["launches"][f"dequant_{codec}"] == 1
+        assert dequant.launches_by_kernel[codec] - before == 1
 
 
 def test_fabric_and_pods_are_refused_at_construction():

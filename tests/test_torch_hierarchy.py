@@ -1,8 +1,7 @@
 """The port's hierarchical control, on ``tests/test_hierarchy.py``'s cases.
 
 The JAX package's hierarchy tests, run with the port's classes (the
-port's ``runtime/hierarchy.py`` is a copy of the JAX module).  The
-codec-qualified case waits for the codecs (ROADMAP, port Queue 1 item 3).
+port's ``runtime/hierarchy.py`` is a copy of the JAX module).
 The JAX file's account of what the cases show:
 
 What the tentpole demands:
@@ -271,6 +270,71 @@ def test_member_status_reaches_root_through_aggregates():
         assert delivered == len(assignment) * size, links
     finally:
         _close_hier(leader, recvs, ctls, ts)
+
+
+class _LandsOnFirstLook(dict):
+    """A receiver's layer table whose layer ``lid`` lands at the first
+    look for it: the look still finds it absent, and the landing fires the
+    seat's own-layer hook (as the receiver's ack does) while the pass that
+    looked holds its members' claims."""
+
+    def __init__(self, lid, layer, hook):
+        super().__init__()
+        self._landing = (lid, layer, hook)
+
+    def _look(self, key):
+        if self._landing is not None and key == self._landing[0]:
+            lid, layer, hook = self._landing
+            self._landing = None
+            super().__setitem__(lid, layer)
+            hook(lid)
+            return False
+        return True
+
+    def __contains__(self, key):
+        return self._look(key) and super().__contains__(key)
+
+    def get(self, key, default=None):
+        return super().get(key, default) if self._look(key) else default
+
+
+def test_first_dispatch_chains_when_its_layer_lands_during_the_pass():
+    """The fan-out race: a pass claims the members' pairs, finds the
+    layer not yet held, and the layer lands meanwhile -- its own-layer
+    trigger passes the claimed pairs over.  The first dispatch must
+    still ride the chain, never the star."""
+    ts, _ = make_transports("inmem", [1])
+    sub = FlowRetransmitReceiverNode(Node(1, 0, ts[1]), {})
+    ctl = SubLeaderController(sub, 0, [1, 2, 3])
+    ctl._stop.set()  # no redrive pass in between
+    ctl.detector.stop()
+    chained, starred = [], []
+
+    def chain(lid, pairs):
+        if sub.layers.get(lid) is None:
+            return False
+        chained.append((lid, sorted(m for m, _ in pairs)))
+        return True
+
+    ctl._dispatch_chain = chain
+    ctl._send_one = lambda member, lid, layer, meta=None: starred.append(
+        (member, lid))
+    try:
+        sub.layers = _LandsOnFirstLook(0, mem_layer(0, 1024),
+                                       ctl._on_own_layer)
+        with ctl._lock:
+            ctl._targets = {2: {0: LayerMeta()}, 3: {0: LayerMeta()}}
+        ctl._fan_out_ready()
+        deadline = time.monotonic() + 1.0  # star sends go through a pool
+        while not starred and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert chained == [(0, [2, 3])]
+        assert starred == []
+    finally:
+        ctl.close()
+        sub.close()
+        for t in ts.values():
+            t.close()
 
 
 def test_qualified_member_ack_forwarded_verbatim():
@@ -599,6 +663,80 @@ def test_chain_mid_member_kill_repairs_and_converges(kind, monkeypatch):
         ctl.close()
         close_all(leader, [r for m, r in recvs.items() if m != victim],
                   ts)
+
+
+@pytest.mark.parametrize("kind", ["inmem", "tcp"])
+def test_codec_qualified_delivery_plans_through_group(kind, monkeypatch):
+    """Hierarchy x codecs (the lifted limit), both backends: every
+    grouped seat sits on a slow link and advertises int8 decode (the
+    members' capability rides the new GroupStatus codec fold) — the
+    root routes the group's SHARED codec form through ONE encoded
+    group ingress, the sub-leader chains the encoded bytes internally,
+    and every member verifies the codec-qualified digest."""
+    from test_torch_codec import _enc_blob, _blob_layer, _plane
+    from distributed_llm_dissemination_tpu_torch.utils import (
+        integrity,
+        telemetry,
+    )
+
+    monkeypatch.setenv("DLD_CODEC_MIN_RATE", str(64 << 20))
+    telemetry.reset_run()
+    trace.reset_counters()
+    ids = [0, 1, 2, 3]
+    ts, _ = make_transports(kind, ids)
+    groups = {0: {"leader": 1, "members": [1, 2, 3]}}
+    lids = [0, 1]
+    layers = {lid: _blob_layer(lid) for lid in lids}
+    assignment = {i: {lid: LayerMeta() for lid in lids}
+                  for i in (1, 2, 3)}
+    bw = {0: 1 << 30, 1: 4 << 20, 2: 4 << 20, 3: 4 << 20}
+    leader = HierarchicalFlowLeaderNode(
+        Node(0, 0, ts[0]), layers, assignment, bw, groups=groups,
+        expected_nodes={1}, codecs=_plane())
+    sub = FlowRetransmitReceiverNode(Node(1, 0, ts[1]), {},
+                                     heartbeat_interval=HB,
+                                     codecs=_plane())
+    ctl = SubLeaderController(sub, 0, [1, 2, 3])
+    recvs = {1: sub}
+    for m in (2, 3):
+        recvs[m] = FlowRetransmitReceiverNode(Node(m, 1, ts[m]), {},
+                                              heartbeat_interval=HB,
+                                              codecs=_plane())
+    try:
+        for r in recvs.values():
+            r.announce()
+        # The members' decode capability must fold upward BEFORE the
+        # first plan stamps codec choices (choices are memoized).
+        _wait_for(lambda: all(m in leader.node_codecs for m in (1, 2, 3)),
+                  what="member codec capabilities to fold to the root")
+        leader.start_distribution().get(timeout=TIMEOUT)
+        leader.ready().get(timeout=TIMEOUT)
+        for m in (1, 2, 3):
+            for lid in lids:
+                src = recvs[m].layers[lid]
+                assert src.meta.codec == "int8", (m, lid)
+                assert bytes(src.inmem_data) == _enc_blob(lid), (m, lid)
+                if integrity.digests_enabled():
+                    assert lid in recvs[m]._digest_ok, (m, lid)
+                assert leader.status[m][lid].codec == "int8", (m, lid)
+        # ONE group ingress of the ENCODED bytes: the root's only data
+        # link is to the sub-leader, and it carried exactly the
+        # encoded model once.
+        enc_total = sum(len(_enc_blob(lid)) for lid in lids)
+        links = telemetry.snapshot()["links"]
+        base = {key: row for key, row in links.items() if "#" not in key}
+        root_out = sum(row.get("delivered_bytes", 0)
+                       for key, row in base.items()
+                       if key.startswith("0->"))
+        assert root_out == enc_total, base
+        assert base.get("0->1", {}).get("delivered_bytes", 0) == \
+            enc_total
+        totals = trace.counter_totals()
+        assert totals.get("hier.chain_plans", 0) >= 1
+        assert totals.get("hier.relay_frags", 0) >= 1
+    finally:
+        ctl.close()
+        close_all(leader, list(recvs.values()), ts)
 
 
 @pytest.mark.parametrize("kind", ["inmem", "tcp"])

@@ -21,7 +21,10 @@ import torch
 import distributed_llm_dissemination_tpu_torch as port
 from distributed_llm_dissemination_tpu_torch.models import generate as tgen
 from distributed_llm_dissemination_tpu_torch.models import llama as tllama
+from distributed_llm_dissemination_tpu_torch.models import quant as tquant
 from distributed_llm_dissemination_tpu_torch.models import serde as tserde
+from distributed_llm_dissemination_tpu_torch.ops import cuda_build
+from distributed_llm_dissemination_tpu_torch.ops import dequant as tdequant
 from distributed_llm_dissemination_tpu_torch.ops import reassembly as tre
 from distributed_llm_dissemination_tpu_torch.parallel import ingest as ting
 from distributed_llm_dissemination_tpu_torch.parallel import mesh as tmesh
@@ -51,6 +54,8 @@ CLI = [
     "cli.trace", "cli.collect_logs", "cli.diskspeed", "runtime.hierarchy",
     "utils.provenance", "utils.critical_path", "models.prng",
 ]
+# The codecs (slice 5): each must be among the modules imported below too.
+CODECS = ["models.entropy", "models.quant", "ops.dequant"]
 REPO = PORT_DIR.parent
 JAX_PACKAGE_IMPORT = re.compile(
     r"^\s*(from|import)\s+distributed_llm_dissemination_tpu(\.|\s|$)",
@@ -81,7 +86,8 @@ def test_every_port_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-2000:]
     imported = set(proc.stdout.split())
     assert len(imported) >= 15
-    missing = {f"{port.__name__}.{m}" for m in CONTROL_PLANE + CLI} - imported
+    missing = {f"{port.__name__}.{m}"
+               for m in CONTROL_PLANE + CLI + CODECS} - imported
     assert not missing, missing
 
 
@@ -130,6 +136,7 @@ def _entry_points():
         "StreamingBootStager": lambda: stream_boot.StreamingBootStager(cfg),
         "boot_from_layers": lambda: tboot.boot_from_layers(cfg, layers),
         "precompile_boot": lambda: tboot.precompile_boot(cfg, [0, 1, 2, 3, 4]),
+        "codec_bench": lambda: tquant.codec_bench(cfg),
         "assignment_to_placement": lambda: tmesh.assignment_to_placement(
             {2: {0: None}}),
         "ReceiverNode(stage_hbm)": lambda: _receiver(stage_hbm=True),
@@ -181,7 +188,42 @@ def test_entry_point_without_device_raises_when_no_gpu(name):
 def test_cuda_kernel_wrapper_never_falls_back():
     """No try/except around the build or the launch, and no environment
     switch in the kernel modules."""
-    for rel in ("ops/flash_attention.py", "ops/cuda_build.py"):
+    for rel in ("ops/flash_attention.py", "ops/cuda_build.py",
+                "ops/dequant.py"):
         text = (PORT_DIR / rel).read_text()
         assert "except" not in text, rel
         assert "os.environ" not in text, rel
+
+
+class _CudaLooking(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: what the dequant wrapper
+    sees of a card tensor on a machine that has no ``nvcc``."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+def test_dequant_wrapper_raises_for_a_cuda_tensor_without_nvcc(
+        codec, tmp_path, monkeypatch):
+    if cuda_build.shutil.which("nvcc"):
+        pytest.skip("nvcc is present: the kernel would build")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_built", {})
+    monkeypatch.setattr(tdequant, "_fns", {})
+    cfg = tllama.CONFIGS["tiny"]
+    specs = tserde.blob_specs(cfg, 0)
+    table = tquant.leaf_table(codec, specs, cfg.dtype)
+    nbytes = sum(leaf.nbytes for leaf in table)
+    blob = torch.Tensor._make_subclass(
+        _CudaLooking, torch.zeros(nbytes, dtype=torch.uint8))
+    outs = [torch.Tensor._make_subclass(
+        _CudaLooking, torch.empty(leaf.shape, dtype=cfg.dtype))
+        for leaf in table]
+    plain = dict(tdequant.plain_calls)
+    launches = tdequant.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tdequant.dequant(codec, blob, table, outs)
+    assert tdequant.plain_calls == plain  # never the plain version
+    assert tdequant.launches == launches

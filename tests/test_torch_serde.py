@@ -148,11 +148,23 @@ def test_seeded_blob_is_deterministic_and_shaped():
 
 @pytest.mark.parametrize("codec", ["int8", "int4", "int8e"])
 def test_unported_codecs_raise(codec):
+    """Every codec of the JAX package is ported: the quantized forms decode
+    on the device path as on the host, and only what the JAX package also
+    refuses raises -- a device decode of an entropy form (it unwraps on
+    the host first) and an unknown codec."""
     cfg = tllama.CONFIGS["tiny"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tquant.device_decode_jit(codec)
-    with pytest.raises(NotImplementedError):
-        tquant.decode_blob_host(cfg, 0, b"", codec)
+    enc = tquant.encode_blob(cfg, 0, tserde.seeded_blob(cfg, 0, device="cpu"),
+                             codec)
+    host = tquant.decode_blob_host(cfg, 0, enc, codec)
+    if codec in tquant.ENTROPY_CODECS:
+        with pytest.raises(ValueError, match="no device decode"):
+            tquant.device_decode_jit(codec)
+    else:
+        dev = tquant.stacked_from_device(
+            cfg, [tserde._host_u8(enc)], codec)
+        for name, _ in tserde.layer_param_specs(cfg):
+            assert torch.equal(dev[name][0].view(torch.int16),
+                               host[name].view(torch.int16)), name
     with pytest.raises(ValueError):
         tquant.device_decode_jit("zstd")
 
