@@ -14,7 +14,9 @@ caught):
 2. kernel vs plain: each block-attention kernel (split-KV decode,
    tensor-core prefill, scalar f32) against its plain PyTorch version and
    an f64 oracle on every case shape it accepts, then the serving shapes
-   of a ``--prompt`` and of a ``--long-prompt`` serve.  Device times of
+   of a ``--prompt`` and of a ``--long-prompt`` serve; then the f16
+   instances of the decode and prefill kernels on f16 cases and on the
+   ``--prompt`` serve's shapes in f16 (its own mix).  Device times of
    the kernel, the plain version and one library call
    (``scaled_dot_product_attention``, a yardstick the port never calls)
    come from CUDA-graph replay of many calls, beside the least time the
@@ -72,8 +74,9 @@ caught):
    run on the card, bit for bit, and layer blob 0 also the port's CPU
    host decode; synthetic leaves on the kernels' traps (unaligned scale
    blocks, odd and non-128 columns, 1-D leaves, blobs at odd offsets) in
-   bf16 and f32 likewise; ms per launch by CUDA-graph replay beside the
-   bytes bound and the plain version's ms.  Then the entropy forms (int8e,
+   bf16, f16 and f32 likewise, and layer blob 0 rounded to f16 and
+   encoded as an f16 model's (the f16 output instances); ms per launch by
+   CUDA-graph replay beside the bytes bound and the plain version's ms.  Then the entropy forms (int8e,
    int4e) of layer blob 0 and the head blob, held on the card, stage
    through the boot's device paths: the DLE1 pass on the host, the base
    form through its kernel, one launch per blob and the plain version
@@ -103,7 +106,13 @@ caught):
    encode; seconds per GB), every blob byte-identical to the seeded
    blob, and phase 6's round of the ``hf:`` model with phase 6's checks,
    served ids equal to phase 3's, K1 launched and the plain attention
-   never.  (b) ``moe``: every prefill and decode shape of a ``tiny-moe``
+   never.  ``hf_f16``: after the bf16 checkpoint is deleted, the same
+   weights rounded to float16 as an f16 checkpoint, fabricated back
+   (every blob equal to the seeded leaves rounded to f16) and served in
+   phase 6's round through K1's f16 instances only (launch counts by
+   instance), the booted params f16, the served ids equal to a direct
+   greedy run with the plain attention on the card up to the first
+   near-tie (``near_tie_ids``).  (b) ``moe``: every prefill and decode shape of a ``tiny-moe``
    serve through K1 against its plain version, as phase 2's serving
    mixes; ``tiny-moe`` seeded blobs; K2 and K3 on the rank-3 expert
    leaves of a layer blob against their plain versions, bit for bit;
@@ -116,11 +125,30 @@ caught):
    position, and each greedy decode step's logits and id with the
    kernel run fed the plain run's ids; each pair's own routings must
    agree on 95% of (layer, token) pairs (``moe_parity``).
+10. train: the training path (``models/sharded.py``) on one card.  K1
+   against its plain version at every block shape of a causal ring over
+   ``TRAIN_SEQ`` tokens for sp = 1, 2 and 4, offsets included (a
+   multi-card ring would launch these).  Then ``--config`` at full
+   width, b = 1, ``TRAIN_SEQ`` tokens, one rank, layer remat: one step's
+   loss and per-leaf gradients with K1 against the same step with the
+   plain attention on the card (``TRAIN_LOSS_REL``, ``TRAIN_GRAD_REL``),
+   then ``TRAIN_STEPS`` AdamW steps (ms per step, tokens per second,
+   peak memory; K1 launches counted from just before to just after them,
+   2 x n_layers per step, the plain attention never; the last loss below
+   the first) and one more step under the profiler.  Then the
+   checkpoint leg on ``CKPT_CONFIG`` after a disk-room check: two steps,
+   ``save_train_state``, ``restore_train_state``, and the next steps
+   bit-identical to the uninterrupted run; then ``python -m
+   distributed_llm_dissemination_tpu_torch.cli.train -resume`` as a
+   child process on the card, whose losses equal the library's.
 
-Then the ``{"kernels": [...]}`` line (K1's three kernels, then K2 and K3;
-``launches`` is the main path's count -- phase 3 for K1, phase 8's
-``ModelCodec`` round for K2 and K3 -- and ``launches_by_path`` shows
-every counted path),
+Then the ``{"kernels": [...]}`` line (K1's three kernels, its two f16
+instances, then K2 and K3 and their f16 output instances; ``launches`` is
+the main path's count -- phase 3 for K1, phase 9's f16 round for its f16
+instances, phase 8's ``ModelCodec`` round for K2 and K3 -- and
+``launches_by_path`` shows every counted path, phase 10's ``train``
+among them; the prefill entry's ``train`` holds K1 at the training
+step's block),
 the script's wall time, the card's name and power limit as
 ``nvidia-smi`` prints them, and, last, the ``{"ok": true, ...}`` line.
 """
@@ -142,7 +170,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
+              "float32": 67e12}  # dense, per dtype
 CSRC = "distributed_llm_dissemination_tpu_torch/csrc/"
 KERNEL_REPLACES = "distributed_llm_dissemination_tpu/ops/flash_attention.py:128"
 # Kernel name -> the CUDA kernels (profiler names) it launches.
@@ -246,7 +275,7 @@ def attention_bound(b, kvh, g, sq, t, hd, q_off, k_off, dtype_name):
     HBM rate and the operations its visible (query, key) pairs need over
     the peak rate for the input type.  Returns (ms, "bytes"|"operations",
     flops, bytes)."""
-    item = 2 if dtype_name == "bfloat16" else 4
+    item = 4 if dtype_name == "float32" else 2
     pairs = 0
     for r in range(sq):
         pairs += max(0, min(t, q_off + r - k_off + 1))
@@ -302,10 +331,10 @@ def _row_max_err(a, b):
 
 
 def attention_case(fa, b, kvh, g, sq, t, hd, q_off, k_off, dtype, seed,
-                   calls=10, host=False):
+                   calls=10, host=False, timed=True):
     """Phase-2 record for one shape: which kernel served it, its errors
-    against the plain version and the f64 oracle (checked), and the three
-    device times beside the bound."""
+    against the plain version and the f64 oracle (checked), and, when
+    ``timed``, the three device times beside the bound."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -324,14 +353,14 @@ def attention_case(fa, b, kvh, g, sq, t, hd, q_off, k_off, dtype, seed,
     oracle = oracle_f64(qg, k, v, q_off, k_off)
     # Tolerances.  m: 1e-4 (f32 rounding of a max).  l and pv: sums of up
     # to t f32 terms of size <= 1 in another order, tol * max(1, max l).
-    # pv of the prefill kernel also carries its bf16 rounding of p, at
-    # most BF16_P_REL * l * max|v| per row (ops/flash_attention.py).
+    # pv of the prefill kernel also carries its rounding of p to the input
+    # type, at most p_round_bound per row (ops/flash_attention.py).
     tol = 2e-3 if t > 1024 else 1e-3
     lmax = max(1.0, float(plain[2].abs().max()))
     pv_bound = torch.full_like(plain[2], tol * lmax, dtype=torch.float64)
     if name == "prefill" and t:
-        pv_bound = pv_bound + (fa.BF16_P_REL * oracle[2]
-                               * float(v.float().abs().max()))
+        pv_bound = pv_bound + fa.p_round_bound(
+            oracle[2], t, float(v.float().abs().max()), dtype)
     err_plain = [float(_row_max_err(got[0], plain[0]).max()),
                  float((got[1] - plain[1]).abs().max()),
                  float((got[2] - plain[2]).abs().max())]
@@ -352,13 +381,16 @@ def attention_case(fa, b, kvh, g, sq, t, hd, q_off, k_off, dtype, seed,
         out = got[0] / got[2][..., None]
         ref = lib()
         lib_err = float((out.reshape(ref.shape) - ref.float()).abs().max())
-        library_ms = time_graph(lib, calls)
+        library_ms = time_graph(lib, calls) if timed else None
     dtype_name = str(dtype).split(".")[-1]
     bound_ms, bound_by, flops, nbytes = attention_bound(
         b, kvh, g, sq, t, hd, q_off, k_off, dtype_name)
-    ms = time_graph(lambda: fa.block_attention(qg, k, v, q_off, k_off), calls)
-    plain_ms = time_graph(
-        lambda: fa.block_attention_ref(qg, k, v, q_off, k_off), calls)
+    ms = plain_ms = None
+    if timed:
+        ms = time_graph(lambda: fa.block_attention(qg, k, v, q_off, k_off),
+                        calls)
+        plain_ms = time_graph(
+            lambda: fa.block_attention_ref(qg, k, v, q_off, k_off), calls)
     rec = {
         "kernel": name,
         "shape": {"b": b, "kvh": kvh, "g": g, "sq": sq, "t": t, "hd": hd,
@@ -448,9 +480,10 @@ def _per_launch(tally):
             "max_pv_err_over_bound": tally["max_pv_err_over_bound"]}
 
 
-def serving_mix(fa, cfg, prompt, gen, seed0):
-    """Every serving shape of one (prompt, gen) serve, timed and checked,
-    tallied per kernel and weighted by its launch count."""
+def serving_mix(fa, cfg, prompt, gen, seed0, dtype=None):
+    """Every serving shape of one (prompt, gen) serve in ``dtype`` (None =
+    bf16), timed and checked, tallied per kernel and weighted by its launch
+    count."""
     import torch
 
     kvh, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
@@ -458,7 +491,7 @@ def serving_mix(fa, cfg, prompt, gen, seed0):
     tallies = {name: _new_tally() for name in fa.SOURCES}
     for j, (n, sq, t, q_off) in enumerate(shapes):
         rec = attention_case(fa, 1, kvh, g, sq, t, hd, q_off, 0,
-                             torch.bfloat16, seed=seed0 + j,
+                             dtype or torch.bfloat16, seed=seed0 + j,
                              host=j in (1, len(shapes) - 1))
         if j < 3 or j == len(shapes) - 1:
             emit("kernel_case", serving_prompt=prompt, launches=n, **rec)
@@ -469,7 +502,7 @@ def serving_mix(fa, cfg, prompt, gen, seed0):
 def phase_kernel(fa, cfg, prompt, gen, long_prompt):
     import torch
 
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
     kvh, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
     jax_offsets = ((0, 0), (256, 0), (0, 256), (128, 0))
     cases = [(1, 2, 2, 256, 256, 128, qo, ko, f32) for qo, ko in jax_offsets]
@@ -491,16 +524,27 @@ def phase_kernel(fa, cfg, prompt, gen, long_prompt):
         (1, 2, 2, 64, 0, 64, 0, 0, bf16),                       # empty block
         (1, kvh, g, 2048, 2048, hd, 0, 0, bf16),                # s = 2048
     ]
+    cases += [                                                  # f16 instances
+        (1, kvh, g, 1, 2048, hd, 2047, 0, f16),                 # decode
+        (1, 2, 4, 2, 300, 32, 250, 0, f16),                     # decode hd 32
+        (1, kvh, g, 2048, 2048, hd, 0, 0, f16),                 # prefill
+        (1, 2, 2, 77, 300, 64, 250, 0, f16),                    # prefill hd 64
+    ]
     by_kernel = {name: _new_tally() for name in fa.SOURCES}
     for i, case in enumerate(cases):
         rec = attention_case(fa, *case, seed=i,
                              calls=4 if case[3] * case[4] > 1 << 20 else 10)
         emit("kernel_case", **rec)
-        _add(by_kernel[rec["kernel"]], rec, 1)
+        if case[-1] != f16:  # the f16 instances have their own mix
+            _add(by_kernel[rec["kernel"]], rec, 1)
     for name, tally in by_kernel.items():
         check(tally["n"] > 0, f"no phase-2 case for the {name} kernel")
     mixes = {f"prompt{p}": serving_mix(fa, cfg, p, gen, seed0)
              for p, seed0 in ((prompt, 100), (long_prompt, 200))}
+    # The same serve of an f16 model: K1's f16 instances (phase 9's f16
+    # round launches them).
+    mixes[f"prompt{prompt}_f16"] = serving_mix(fa, cfg, prompt, gen, 300,
+                                               dtype=f16)
     emit("kernel_mixes", gen=gen, timing=TIMING, mixes=mixes)
     return {name: _per_launch(tl) for name, tl in by_kernel.items()}, mixes
 
@@ -975,8 +1019,10 @@ def mode3_round(cfg, args, fa, prompt, blobs, boot_codec="raw", plane=None):
             latency.append(time.monotonic() - t_req)
         return {  # ...and are read here
             "attention": dict(fa.launches_by_kernel),
+            "attention_by_instance": dict(fa.launches_by_instance),
             "attention_plain": fa.plain_calls,
             "dequant": dict(dq.launches_by_kernel),
+            "dequant_by_instance": dict(dq.launches_by_instance),
             "plain": dict(dq.plain_calls),
             "wall_s": time.monotonic() - t_phase,
             "counters": trace.counter_totals(),
@@ -1361,7 +1407,7 @@ TRAP_SPECS = (("a", (3, 5)), ("b", (7,)), ("c", (2, 3, 6)), ("d", (5, 130)),
 def _bits(t):
     import torch
 
-    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
 def _to_card(data, shift=0):
@@ -1414,11 +1460,19 @@ def codec_kernel_case(dq, quant, kind, name, data, specs, dtype, shift=0,
 def codec_kernels(cfg, quant, serde, dq, blobs):
     """Phase 8's kernel cases (module docstring).  Returns (wire blobs by
     codec, encode seconds by codec and blob, the cases)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
     head = serde.head_blob_id(cfg)
     wire, enc_s, cases = {}, {}, []
+    # Layer blob 0 as an f16 model's: its leaves rounded to f16.
+    cfg16 = dataclasses.replace(cfg, dtype=torch.float16)
+    leaves = serde._split_blob(cfg, blobs[0], serde.blob_specs(cfg, 0))
+    raw16 = b"".join(leaves[name].to(torch.float16).numpy().tobytes()
+                     for name, _ in serde.blob_specs(cfg, 0))
+    del leaves
     for kind in dq.KINDS:
         wire[kind], enc_s[kind] = {}, {}
         for lid in sorted(blobs):
@@ -1442,9 +1496,16 @@ def codec_kernels(cfg, quant, serde, dq, blobs):
                 del host
             del kern
             cases.append(rec)
+        # The f16 output instances on the same layer, encoded as f16.
+        data16 = bytearray(quant.encode_blob(cfg16, 0, raw16, kind))
+        rec, kern = codec_kernel_case(dq, quant, kind, "layer_f16", data16,
+                                      serde.blob_specs(cfg16, 0),
+                                      torch.float16, timed=True)
+        del kern, data16
+        cases.append(rec)
         rng = np.random.default_rng(3)
         n = sum(int(np.prod(shape)) for _, shape in TRAP_SPECS)
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
             x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
             raw = x.to(dtype).view(torch.uint8).numpy().tobytes()
             data = bytearray(quant.encode_specs(TRAP_SPECS, dtype, raw, kind))
@@ -1637,6 +1698,7 @@ def phase_codec(cfg, args, fa, fab, prompt, raw_ttd_s):
             check(ids_got == want, f"{kind} served ids {ids_got} != {want}")
         rounds[kind] = {
             "launches": out["dequant"][kind],
+            "f16_launches": out["dequant_by_instance"][f"{kind}:float16"],
             "record": dict(
                 codec=kind, ttd_s=out["ttd_s"], start_s=out["start_s"],
                 ttft_after_startup_s=out["ttft_s"],
@@ -1723,7 +1785,9 @@ def phase_codec(cfg, args, fa, fab, prompt, raw_ttd_s):
     emit("codec", rounds={k: r["record"] for k, r in rounds.items()},
          negotiated=negotiated, phase_wall_s=time.monotonic() - t_phase)
     return {kind: {"launches": rounds[kind]["launches"],
-                   "layer": stats[kind]["layer"], "head": stats[kind]["head"]}
+                   "f16_launches": rounds[kind]["f16_launches"],
+                   "layer": stats[kind]["layer"], "head": stats[kind]["head"],
+                   "layer_f16": stats[kind]["layer_f16"]}
             for kind in dq.KINDS}
 
 
@@ -1745,13 +1809,13 @@ HF_LAYER_NAMES = {
     "w2": "mlp.down_proj.weight"}
 
 
-def _safetensors_header(entries):
-    """A safetensors header for ``entries`` [(name, shape, nbytes)] of BF16
-    tensors laid out in order: the 8-byte length, then the JSON padded
-    with spaces to a multiple of 8."""
+def _safetensors_header(entries, dtype="BF16"):
+    """A safetensors header for ``entries`` [(name, shape, nbytes)] of
+    ``dtype`` tensors laid out in order: the 8-byte length, then the JSON
+    padded with spaces to a multiple of 8."""
     header, off = {}, 0
     for name, shape, nbytes in entries:
-        header[name] = {"dtype": "BF16", "shape": list(shape),
+        header[name] = {"dtype": dtype, "shape": list(shape),
                         "data_offsets": [off, off + nbytes]}
         off += nbytes
     text = json.dumps(header).encode()
@@ -1759,15 +1823,18 @@ def _safetensors_header(entries):
     return len(text).to_bytes(8, "little") + text
 
 
-def write_hf_checkpoint(cfg, serde, blobs, path):
+def write_hf_checkpoint(cfg, serde, blobs, path, f16=False):
     """``cfg``'s blobs as a Hugging Face Llama checkpoint in ``path``:
-    bf16, projections transposed to HF's [out, in], an untied
+    bf16 (``f16``: every leaf rounded to float16, ``torch_dtype``
+    float16), projections transposed to HF's [out, in], an untied
     ``lm_head``, the layers split over ``HF_SHARDS`` safetensors files, and
     a ``config.json`` with the configuration's constants.  The writer
     needs no ``safetensors`` package (the card's machine has none)."""
     import os
 
     import torch
+
+    dtype = torch.float16 if f16 else torch.bfloat16
 
     tensors = []  # (shard, HF name, blob id, leaf name, transpose)
     head = serde.head_blob_id(cfg)
@@ -1788,7 +1855,7 @@ def write_hf_checkpoint(cfg, serde, blobs, path):
             leaves[lid] = serde.decode_device(
                 serde._host_u8(blobs[lid]), serde.blob_specs(cfg, lid),
                 torch.bfloat16)
-        t = leaves[lid][name]
+        t = leaves[lid][name].to(dtype)
         return t.T.contiguous() if tr else t
 
     written = 0
@@ -1803,7 +1870,7 @@ def write_hf_checkpoint(cfg, serde, blobs, path):
         fname = os.path.join(path, f"model-{shard + 1:05d}-of-"
                                    f"{HF_SHARDS:05d}.safetensors")
         with open(fname, "wb") as f:
-            f.write(_safetensors_header(entries))
+            f.write(_safetensors_header(entries, "F16" if f16 else "BF16"))
             for _, key, lid, name, tr in mine:
                 t = leaf(lid, name, tr)
                 check(tuple(t.shape) == shapes[key], f"{key} shape")
@@ -1814,7 +1881,8 @@ def write_hf_checkpoint(cfg, serde, blobs, path):
             "num_key_value_heads": cfg.n_kv_heads,
             "intermediate_size": cfg.d_ff, "vocab_size": cfg.vocab,
             "num_hidden_layers": cfg.n_layers, "rope_theta": cfg.rope_theta,
-            "rms_norm_eps": cfg.norm_eps, "torch_dtype": "bfloat16",
+            "rms_norm_eps": cfg.norm_eps,
+            "torch_dtype": "float16" if f16 else "bfloat16",
             "tie_word_embeddings": False}
     with open(os.path.join(path, "config.json"), "w") as f:
         json.dump(conf, f)
@@ -1823,7 +1891,8 @@ def write_hf_checkpoint(cfg, serde, blobs, path):
 
 def _check_raw_round(cfg, out, blobs, fab_tokens, full_width=True):
     """Phase 6's checks of a raw round (bytes on the card, ingest, no
-    fallback, a warm-up, full boot, served ids equal ``fab_tokens``).
+    fallback, a warm-up, full boot, served ids equal ``fab_tokens``; None:
+    every request served the same ids, which the caller checks).
     ``full_width``: also both seeders sent bytes and the warm-up ended
     before startup; a model of a few MB fits in one fragment per blob
     and its round may end first."""
@@ -1858,8 +1927,9 @@ def _check_raw_round(cfg, out, blobs, fab_tokens, full_width=True):
           and res.kind == "full", f"boot {out['booted']}")
     check(res.via == "streamed per-layer", f"via {res.via!r}")
     for ids_got in out["served"]:
-        check(ids_got == fab_tokens,
-              f"served ids {ids_got} != direct generate {fab_tokens}")
+        want = out["served"][0] if fab_tokens is None else fab_tokens
+        check(ids_got == want,
+              f"served ids {ids_got} != direct generate {want}")
     return sent
 
 
@@ -1947,6 +2017,116 @@ def phase_hf(cfg, args, fa, fab, prompt):
     launches = dict(out["attention"])
     del out, hblobs
     gc.collect()
+    return launches
+
+
+def near_tie_ids(fa, params, prompt, cfg, served):
+    """Phase 9's near-tie rule for one served id sequence: a direct greedy
+    run with the plain attention on the card, and K1's logits on the same
+    ids (teacher forcing).  A step whose plain top-2 margin is within
+    twice its logits' difference may pick either id, so the served ids
+    must equal the plain run's up to the first step, if any, that is such
+    a near-tie; and K1's step logits stay within 2% of the largest."""
+    n = len(served)
+    plain = step_logits(params, prompt, cfg, n, fa.block_attention_ref)
+    plain_ids = plain.argmax(-1).tolist()
+    kern = step_logits(params, prompt, cfg, n, tokens=plain_ids)
+    diffs = (kern - plain).abs().amax(-1)
+    top = plain.topk(2, dim=-1).values
+    near_ties = (top[:, 0] - top[:, 1] <= 2 * diffs).nonzero()[:, 0].tolist()
+    first = next((i for i in range(n) if served[i] != plain_ids[i]), n)
+    step_diff, scale = float(diffs.max()), float(plain.abs().max())
+    check(first == n or first in near_ties,
+          f"served ids {served} part from the plain run {plain_ids} at step "
+          f"{first}, not a near-tie ({near_ties})")
+    check(step_diff <= 0.02 * scale, f"K1 and plain decode logits differ by "
+          f"{step_diff} (largest logit {scale})")
+    return dict(plain_ids=plain_ids, ids_equal=first == n,
+                first_difference=first, near_ties=near_ties,
+                max_abs_step_logit_diff=step_diff, largest_logit=scale)
+
+
+def phase_hf_f16(cfg, args, fa, fab, prompt):
+    """Phase 9 (a, float16): ``cfg``'s seeded weights rounded to float16 as
+    an HF checkpoint (written after the bf16 one is deleted, so the disk
+    holds one at a time), fabricated back through ``hf:`` and served in
+    phase 6's round through K1's f16 instances.  Returns the round's
+    attention launches by kernel instance."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.core import config as ccfg
+    from distributed_llm_dissemination_tpu_torch.core.types import SourceType
+    from distributed_llm_dissemination_tpu_torch.models import hf, serde
+
+    t_phase = time.monotonic()
+    blobs = fab["blobs"]
+    ids = sorted(blobs)
+    total = sum(len(b) for b in blobs.values())
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    check(free >= total + HF_DISK_SLACK,
+          f"{free} B free under {tmp}; the f16 checkpoint needs {total} B "
+          f"and {HF_DISK_SLACK} B to spare")
+    path = tempfile.mkdtemp(prefix="hf16-", dir=tmp)
+    try:
+        t0 = time.monotonic()
+        written = write_hf_checkpoint(cfg, serde, blobs, path, f16=True)
+        write_s = time.monotonic() - t0
+        hcfg = hf.config_from_name(hf.PREFIX + path)
+        check(hcfg.dtype == torch.float16, f"hf dtype {hcfg.dtype}")
+        nc = ccfg.NodeConf(id=1, addr="1",
+                           initial_layers={SourceType.MEM: {b: 0 for b in ids}},
+                           sources={SourceType.MEM: 0})
+        t0 = time.monotonic()
+        made = ccfg.create_layers(nc, save_disk=False,
+                                  model=hf.PREFIX + path)
+        fab_s = time.monotonic() - t0
+        hblobs = {lid: made[lid].inmem_data for lid in ids}
+        del made
+        for lid in ids:  # each blob: the seeded leaves rounded to f16
+            specs = serde.blob_specs(cfg, lid)
+            leaves = serde._split_blob(cfg, blobs[lid], specs)
+            want = b"".join(leaves[name].to(torch.float16).numpy().tobytes()
+                            for name, _ in specs)
+            check(bytes(hblobs[lid]) == want,
+                  f"f16 hf blob {lid} != the seeded blob rounded to f16")
+            del leaves, want
+        out = mode3_round(hcfg, args, fa, prompt, hblobs)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    sent = _check_raw_round(hcfg, out, hblobs, None)
+    want = _expected_round_launches(fa, hcfg, args,
+                                    out["warm"][0][0]["launches"])
+    check(out["attention"] == want,
+          f"f16 round attention launches {out['attention']} != {want}")
+    by_inst = out["attention_by_instance"]
+    for name in ("decode", "prefill"):
+        check(by_inst[f"{name}:float16"] == want[name] > 0
+              and by_inst[f"{name}:bfloat16"] == 0,
+              f"f16 round launches by instance {by_inst}")
+    check(out["attention_plain"] == 0,
+          f"{out['attention_plain']} plain attention calls in the f16 round")
+    params = out["res"].params
+    check(all(t.dtype == torch.float16 for t in params["layers"].values()),
+          "the f16 model booted in another dtype")
+    parity = near_tie_ids(fa, params, prompt, hcfg, out["served"][0])
+    emit("hf_f16", config=f"hf:<tmp>/{os.path.basename(path)}",
+         written_from=cfg.name, dtype="float16", checkpoint_bytes=written,
+         disk_free_bytes=free, write_s=write_s,
+         blobs_equal_seeded_rounded_to_f16=f"{len(ids)}/{len(ids)}",
+         fabricate_s=fab_s, blob_s_per_gb=fab_s / (total / 1e9),
+         served_ids=out["served"][0], plain_attention_parity=parity,
+         attention_launches_by_instance=by_inst,
+         phase_wall_s=time.monotonic() - t_phase,
+         **_round_record(out, sent))
+    launches = dict(by_inst)
+    del out, hblobs, params
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2179,6 +2359,298 @@ def phase_moe(args, fa, prompt):
     return mix, attention, k2
 
 
+# ------------------------------------------------------------ phase 10
+
+TRAIN_SEQ = 2048  # the one sequence (b = 1) each training step takes
+TRAIN_STEPS = 5
+TRAIN_LR = 3e-3  # tests/test_models.py's AdamW training tests
+TRAIN_SP = (1, 2, 4)  # the rings whose block shapes K1 is held at
+CKPT_CONFIG = "llama3-8b-d4v8k"  # the checkpoint leg: about 9.4 GB of state
+CLI_STEPS = 2
+# K1 against the plain attention in one full-width step.  The kernel rounds
+# p to bf16 for the PV product where the plain version keeps f32; on the
+# CPU that rounding moved tiny2's bf16 gradients (512 tokens) by 0.6-1.8%
+# in relative Frobenius norm and its loss by 6e-5 relative.  Held at 5%
+# per leaf and 1e-3 of the loss.
+TRAIN_GRAD_REL = 0.05
+TRAIN_LOSS_REL = 1e-3
+
+
+def ring_block_shapes(seq, sp_sizes):
+    """Every block a causal ring over ``seq`` tokens computes on each of
+    its ranks, for each ring size: (sp, rows = keys, q_off, k_off)."""
+    return [(sp, seq // sp, my * (seq // sp), src * (seq // sp))
+            for sp in sp_sizes for my in range(sp) for src in range(my + 1)]
+
+
+def card_params(cfg, serde, seed, blobs=None):
+    """The seeded params on the card, stacked as the model takes them:
+    from host ``blobs``, or drawn on the card."""
+    import torch
+
+    def leaves(lid):
+        if blobs is None:
+            return serde.seeded_leaves(cfg, lid, seed, device="cuda")
+        return {name: t.cuda() for name, t in serde._split_blob(
+            cfg, blobs[lid], serde.blob_specs(cfg, lid)).items()}
+
+    layers = {}
+    for lid in range(cfg.n_layers):
+        for name, t in leaves(lid).items():
+            if name not in layers:
+                layers[name] = torch.empty((cfg.n_layers, *t.shape),
+                                           dtype=t.dtype, device="cuda")
+            layers[name][lid].copy_(t)
+    head = leaves(serde.head_blob_id(cfg))
+    return {"embed": head["embed"], "layers": layers, "ln_f": head["ln_f"],
+            "lm_head": head["lm_head"]}
+
+
+def _rel_fro(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def _clone_tree(sharded, tree):
+    return sharded.tree_unflatten((p, x.clone())
+                                  for p, x in sharded.tree_leaves(tree))
+
+
+def _same_tree(sharded, a, b):
+    import torch
+
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for (_, x), (_, y) in zip(sharded.tree_leaves(a),
+                                         sharded.tree_leaves(b)))
+
+
+def profile_step(step, args):
+    """Where one warm training step spends the card's time (profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        out = step(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    k1 = [e for e in events if "prefill_wgmma_kernel" in e.key]
+    top = sorted(events, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:12]
+    return out, dict(
+        wall_ms=wall_ms, device_busy_ms=busy_ms,
+        device_idle_share=(1 - busy_ms / wall_ms) if wall_ms else None,
+        k1_device_ms=sum(e.self_device_time_total for e in k1) / 1e3,
+        k1_launches=sum(e.count for e in k1),
+        top=[{"name": e.key[:80], "device_ms": e.self_device_time_total / 1e3,
+              "calls": e.count} for e in top])
+
+
+def phase_train(cfg, args, fa, fab):
+    """Phase 10 (module docstring).  Returns the train path's K1 launches
+    by kernel and K1's numbers at the step's block."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.models import (
+        serde, sharded, train_ckpt)
+    from distributed_llm_dissemination_tpu_torch.models.llama import CONFIGS
+
+    t_phase = time.monotonic()
+    kvh, g, hd = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    L = cfg.n_layers
+
+    # (a) K1 at every block shape of a ring over TRAIN_SEQ tokens.
+    ring = []
+    for i, (sp, s, q_off, k_off) in enumerate(
+            ring_block_shapes(TRAIN_SEQ, TRAIN_SP)):
+        rec = attention_case(fa, 1, kvh, g, s, s, hd, q_off, k_off,
+                             torch.bfloat16, seed=400 + i, calls=4,
+                             timed=sp == 1)
+        check(rec["kernel"] == "prefill", f"ring block {rec['shape']}")
+        ring.append(dict(rec, sp=sp))
+    step_block = ring[0]  # sp = 1: the one block of this card's step
+
+    # (b) the full-width step: one step's loss and gradients with K1
+    # against the same step with the plain attention, then AdamW steps.
+    params = card_params(cfg, serde, args.seed, fab["blobs"])
+    mesh = sharded.make_train_mesh(1, cfg)
+    x, y = sharded.example_batch(cfg, mesh, batch=1, seq=TRAIN_SEQ)
+    fa.reset_counts()
+    loss_k, grads_k = sharded.loss_and_grads(cfg, mesh, params, x, y)
+    torch.cuda.synchronize()
+    grad_launches = dict(fa.launches_by_instance)
+    grad_plain = fa.plain_calls
+    loss_p, grads_p = sharded.loss_and_grads(
+        cfg, mesh, params, x, y, attention=fa.block_attention_ref)
+    rel = {"/".join(p): _rel_fro(a, b) for (p, _), a, b in zip(
+        sharded.tree_leaves(params), grads_k, grads_p)}
+    finite = all(bool(torch.isfinite(t).all()) for t in grads_k)
+    del grads_k, grads_p
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    check(finite and math.isfinite(loss_k), "non-finite loss or gradients")
+    check(grad_launches["prefill:bfloat16"] == 2 * L and grad_plain == 0,
+          f"K1 launches in one remat step {grad_launches}, plain "
+          f"{grad_plain}")
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_REL * abs(loss_p),
+          f"K1 loss {loss_k} vs plain {loss_p}")
+    check(max(rel.values()) <= TRAIN_GRAD_REL,
+          f"K1 vs plain gradients, relative norm {rel}")
+
+    opt = sharded.init_adamw_state(params)
+    step = sharded.build_adamw_train_step(cfg, mesh, lr=TRAIN_LR)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_counts()  # the train path's counts start here
+    losses, step_s = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        params, opt, loss = step(params, opt, x, y)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t0)
+    launches = dict(fa.launches_by_kernel)  # ...and are read here
+    by_inst = dict(fa.launches_by_instance)
+    plain = fa.plain_calls
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == {"decode": 0, "prefill": TRAIN_STEPS * 2 * L,
+                       "scalar": 0}
+          and by_inst["prefill:bfloat16"] == TRAIN_STEPS * 2 * L,
+          f"train path K1 launches {by_inst}")
+    check(plain == 0, f"{plain} plain attention calls on the train path")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"losses {losses}")
+    (params, opt, _), prof = profile_step(step, (params, opt, x, y))
+    del params, opt, x, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    med = statistics.median(step_s)
+    flops = train_flops(cfg, TRAIN_SEQ)
+
+    # (c) the checkpoint leg on CKPT_CONFIG: save, restore, continue
+    # bit-identically; then cli.train -resume as a child process.
+    ccfg = CONFIGS[CKPT_CONFIG]
+    cparams = card_params(ccfg, serde, args.seed)
+    cmesh = sharded.make_train_mesh(1, ccfg)
+    cx, cy = sharded.example_batch(ccfg, cmesh, batch=1, seq=TRAIN_SEQ)
+    copt = sharded.init_adamw_state(cparams)
+    cstep = sharded.build_adamw_train_step(ccfg, cmesh, lr=TRAIN_LR)
+    for _ in range(2):
+        cparams, copt, _ = cstep(cparams, copt, cx, cy)
+    state_bytes = sum(t.numel() * t.element_size() for _, t in
+                      sharded.tree_leaves({"p": cparams, "o": copt}))
+    tmp = tempfile.gettempdir()
+    free = shutil.disk_usage(tmp).free
+    check(free >= 2 * state_bytes + HF_DISK_SLACK,
+          f"{free} B free under {tmp}; the {ccfg.name} checkpoint needs "
+          f"{state_bytes} B twice (a save writes beside the old one)")
+    workdir = tempfile.mkdtemp(prefix="train-", dir=tmp)
+    child = None
+    try:
+        path = os.path.join(workdir, "ckpt")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        train_ckpt.save_train_state(path, cparams, copt, cmesh)
+        save_s = time.monotonic() - t0
+        ref_losses = []
+        rp, ro = _clone_tree(sharded, cparams), _clone_tree(sharded, copt)
+        for _ in range(CLI_STEPS):
+            rp, ro, loss = cstep(rp, ro, cx, cy)
+            ref_losses.append(float(loss))
+        del cparams, copt
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        gp, go = train_ckpt.restore_train_state(path, ccfg, cmesh)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        check(int(go["step"]) == 2, f"restored step {int(go['step'])}")
+        got_losses = []
+        for _ in range(CLI_STEPS):
+            gp, go, loss = cstep(gp, go, cx, cy)
+            got_losses.append(float(loss))
+        check(got_losses == ref_losses and _same_tree(sharded, gp, rp)
+              and _same_tree(sharded, go, ro),
+              f"resumed run {got_losses} differs from the uninterrupted "
+              f"{ref_losses}")
+        del gp, go, rp, ro, cx, cy
+        gc.collect()
+        torch.cuda.empty_cache()
+        conf = os.path.join(workdir, "conf.json")
+        with open(conf, "w") as f:
+            json.dump({"Model": ccfg.name}, f)
+        cmd = [sys.executable, "-m",
+               "distributed_llm_dissemination_tpu_torch.cli.train", "-f",
+               conf, "-resume", "-ckpt", path, "-steps", str(CLI_STEPS),
+               "-batch", "1", "-seq", str(TRAIN_SEQ), "-lr", str(TRAIN_LR)]
+        t0 = time.monotonic()
+        child = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+        out, err = child.communicate(timeout=CHILD_TIMEOUT_S)
+        cli_wall = time.monotonic() - t0
+        check(child.returncode == 0,
+              f"cli.train exited {child.returncode}: {err[-2000:]}")
+        summary = json.loads(out.strip().splitlines()[-1])
+        check(summary["resumed_step"] == 2
+              and summary["final_step"] == 2 + CLI_STEPS
+              and summary["losses"] == [round(v, 4) for v in ref_losses],
+              f"cli.train summary {summary} (the library: {ref_losses})")
+        ckpt_files = sorted(os.listdir(path))
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit("train", config=cfg.name, seq=TRAIN_SEQ, batch=1, remat=True,
+         lr=TRAIN_LR, mesh=dict(mesh.shape), steps=TRAIN_STEPS,
+         losses=losses, step_s=step_s, ms_per_step_median=med * 1e3,
+         tokens_per_s=TRAIN_SEQ / med, model_flops_per_step=flops,
+         achieved_tflops=flops / med / 1e12,
+         max_memory_allocated=peak,
+         k1_launches_per_step=by_inst["prefill:bfloat16"] / TRAIN_STEPS,
+         k1_launches_by_instance=by_inst, plain_attention_calls=plain,
+         k1_vs_plain=dict(loss_k1=loss_k, loss_plain=loss_p,
+                          loss_rel_diff=abs(loss_k - loss_p) / abs(loss_p),
+                          grad_rel_norm_diff=rel,
+                          grad_rel_norm_diff_max=max(rel.values()),
+                          tolerance={"loss_rel": TRAIN_LOSS_REL,
+                                     "grad_rel_norm": TRAIN_GRAD_REL}),
+         k1_step_block=step_block, ring_blocks=ring,
+         profile=prof,
+         checkpoint=dict(config=ccfg.name, state_bytes=state_bytes,
+                         files=ckpt_files, save_s=save_s,
+                         restore_s=restore_s,
+                         resumed_bit_identical=True,
+                         disk_free_bytes=free),
+         cli=dict(wall_s=cli_wall, summary=summary,
+                  losses_equal_library=True),
+         phase_wall_s=time.monotonic() - t_phase)
+    return launches, step_block
+
+
+def train_flops(cfg, seq):
+    """Model operations of one remat training step on ``seq`` tokens: the
+    products of the forward (2 per multiply-add; causal attention counts
+    its visible pairs), three times over for forward and backward, plus
+    the layers' forward again for the recompute."""
+    d, f, h, kv, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    proj = 2 * seq * (d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * f)
+    attn = 4 * hd * h * seq * (seq + 1) // 2
+    layer = proj + attn
+    head = 2 * seq * d * cfg.vocab
+    return 3 * (cfg.n_layers * layer + head) + cfg.n_layers * layer
+
+
 def codec_kernel_entry(dq, kind, st):
     """One ``kernels`` entry for K2/K3: the layer blob's numbers, the head
     blob's beside them."""
@@ -2202,6 +2674,54 @@ def codec_kernel_entry(dq, kind, st):
         "head_blob": {k: st["head"][k] for k in
                       ("ms", "plain_ms", "bound_ms", "wire_bytes",
                        "decoded_bytes")},
+    }
+
+
+def codec_f16_entry(dq, kind, st):
+    """The kernels entry of K2/K3's f16 output instance: layer blob 0 as
+    an f16 model's.  Its launches are the ``ModelCodec`` round's, which
+    serves the bf16 model: no f16 instance runs there."""
+    rec = st["layer_f16"]
+    return {
+        "name": f"dequant_{kind}_f16",
+        "route": "cuda",
+        "source": CSRC + dq.SOURCE,
+        "replaces": CODEC_REPLACES[kind],
+        "launches": st["f16_launches"],
+        "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"],
+        "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"],
+        "library_ms": None,
+        "numbers_from": "llama3-8b-d4 layer blob 0 rounded to f16, encoded "
+                        f"{kind}; phase 8's cases, bit-exact (not on a "
+                        "counted path: every round's model is bf16)",
+        "timing": TIMING,
+    }
+
+
+def kernel_f16_entry(fa, name, f16_launches, mix):
+    """The kernels entry of one of K1's f16 instances: the f16 serving
+    mix's per-launch numbers; launches from phase 9's f16 round."""
+    head = mix[name]
+    return {
+        "name": f"block_attention_{name}_f16",
+        "route": "cuda",
+        "source": CSRC + fa.SOURCES[name],
+        "replaces": KERNEL_REPLACES,
+        "launches": f16_launches[f"{name}:float16"],
+        "launches_by_path": {"hf_f16": f16_launches[f"{name}:float16"]},
+        "max_abs_err": head["max_abs_err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "device_kernels": list(DEVICE_KERNELS[name]),
+        "numbers_from": "f16 serving mix of the main prompt; launches from "
+                        "phase 9's f16 round",
+        "timing": TIMING,
     }
 
 
@@ -2269,20 +2789,34 @@ def main() -> int:
     phase_cli(cfg, args, fa, fab, prompt)
     codec_stats = phase_codec(cfg, args, fa, fab, prompt, raw_ttd_s)
     hf_launches = phase_hf(cfg, args, fa, fab, prompt)
+    f16_launches = phase_hf_f16(cfg, args, fa, fab, prompt)
     mixes[f"{MOE_CONFIG} prompt{args.prompt}"], moe_launches, moe_k2 = (
         phase_moe(args, fa, prompt))
+    train_launches, train_block = phase_train(cfg, args, fa, fab)
     paths = {"main": launches, "hf": hf_launches,
-             "moe_raw": moe_launches["raw"], "moe_int8": moe_launches["int8"]}
+             "moe_raw": moe_launches["raw"], "moe_int8": moe_launches["int8"],
+             "train": train_launches}
     for kind, st in codec_stats.items():
         st["launches"] = {"codec": st["launches"],
                           "moe_int8": moe_k2 if kind == "int8" else 0}
 
     main_mix = f"prompt{args.prompt}"
-    print(json.dumps({"kernels": [
-        kernel_entry(fa, name, paths, case_stats, mixes, main_mix)
-        for name in fa.SOURCES] + [
-        codec_kernel_entry(dq, kind, st) for kind, st in codec_stats.items()]
-    }), flush=True)
+    entries = [kernel_entry(fa, name, paths, case_stats, mixes, main_mix)
+               for name in fa.SOURCES]
+    entries[list(fa.SOURCES).index("prefill")]["train"] = {
+        "launches_per_step": train_launches["prefill"] / TRAIN_STEPS,
+        "block": train_block["shape"],
+        **{k: train_block[k] for k in ("ms", "plain_ms", "library_ms",
+                                       "bound_ms", "bound_by")},
+        "max_abs_err_vs_plain": train_block["max_abs_err_vs_plain"]}
+    entries += [kernel_f16_entry(fa, name, f16_launches,
+                                 mixes[f"{main_mix}_f16"])
+                for name in ("decode", "prefill")]
+    entries += [codec_kernel_entry(dq, kind, st)
+                for kind, st in codec_stats.items()]
+    entries += [codec_f16_entry(dq, kind, st)
+                for kind, st in codec_stats.items()]
+    print(json.dumps({"kernels": entries}), flush=True)
     emit("script", wall_s=time.monotonic() - t_script)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// Split-KV decode attention for Hopper (sm_90a), bf16 in, f32 out.
+// Split-KV decode attention for Hopper (sm_90a), bf16 or f16 in, f32 out.
 //
 // Replaces, for the few-query-row shapes of a decode step, the Pallas TPU
 // kernel `_attn_kernel` (distributed_llm_dissemination_tpu/ops/
@@ -32,9 +32,12 @@
 //    split the first kernel writes the outputs directly and the merge is
 //    not launched.  A split, or a whole call, that sees no key never
 //    reads K/V and yields (0, -1e30, 0).
-//  - Numerics: scores and p stay f32 (exp2 of log2e-scaled scores).
+//  - Numerics: scores and p stay f32 (exp2 of log2e-scaled scores), for
+//    bf16 and f16 inputs alike; the element type is a template parameter
+//    (`dtype` 0 = bf16, 1 = f16 at the C interface).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,7 +48,12 @@ constexpr int NWARPS = NTHREADS / 32;
 constexpr float NEG_INF = -1e30f;  // finite, as the TPU kernel's _NEG_INF
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void unpack8(const uint4& raw, float (&out)[8]) {
+// 8 elements of type T (16 bytes) to f32.
+template <typename T>
+__device__ __forceinline__ void unpack8(const uint4& raw, float (&out)[8]);
+template <>
+__device__ __forceinline__ void unpack8<__nv_bfloat16>(const uint4& raw,
+                                                       float (&out)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -54,18 +62,29 @@ __device__ __forceinline__ void unpack8(const uint4& raw, float (&out)[8]) {
     out[2 * i + 1] = f.y;
   }
 }
+template <>
+__device__ __forceinline__ void unpack8<__half>(const uint4& raw,
+                                                float (&out)[8]) {
+  const __half2* h = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(h[i]);
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
+  }
+}
 
 // One CTA = one (batch, KV head) x one chunk of keys.  NR >= rows is the
 // padded query-row count (rows = g*sq); U keys per lane group per step.
-template <int HD, int NR>
+template <typename T, int HD, int NR>
 __global__ void __launch_bounds__(NTHREADS)
-decode_split_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v,
                     float* __restrict__ part_pv, float* __restrict__ part_m,
                     float* __restrict__ part_l, int rows, int sq, int t,
                     int n_vis, int chunk, long long q_off, long long k_off,
                     float scale_log2) {
+  static_assert(sizeof(T) == 2, "8 elements per 16-byte load");
   constexpr int LPK = HD / 8;             // lanes per key row
   constexpr int KPW = 32 / LPK;           // key rows per warp per step
   constexpr int GROUPS = NWARPS * KPW;    // independent key streams
@@ -89,7 +108,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     if (r < rows) {
       const uint4 raw = *reinterpret_cast<const uint4*>(
           q + (bh * rows + r) * HD + sub * 8);
-      unpack8(raw, qr[r]);
+      unpack8<T>(raw, qr[r]);
 #pragma unroll
       for (int i = 0; i < 8; ++i) qr[r][i] *= scale_log2;
     } else {
@@ -108,8 +127,8 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
   }
 
-  const __nv_bfloat16* kb = k + bh * (long long)t * HD + sub * 8;
-  const __nv_bfloat16* vb = v + bh * (long long)t * HD + sub * 8;
+  const T* kb = k + bh * (long long)t * HD + sub * 8;
+  const T* vb = v + bh * (long long)t * HD + sub * 8;
   // Uniform trip count across the CTA: shuffles need every lane.
   const int span = max(c1 - c0, 0);
   const int n_iter = (span + GROUPS * U - 1) / (GROUPS * U);
@@ -131,7 +150,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float kf[8];
-      unpack8(kraw[u], kf);
+      unpack8<T>(kraw[u], kf);
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
         float d = 0.f;
@@ -167,7 +186,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         float vf[8];
-        unpack8(vraw[u], vf);
+        unpack8<T>(vraw[u], vf);
 #pragma unroll
         for (int i = 0; i < 8; ++i) acc[r][i] = fmaf(p[u], vf[i], acc[r][i]);
       }
@@ -285,13 +304,12 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int HD, int NR>
+template <typename T, int HD, int NR>
 cudaError_t launch(const Args& a) {
-  decode_split_kernel<HD, NR><<<dim3(a.bh, a.n_split), NTHREADS, 0,
-                                a.stream>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v), static_cast<float*>(a.ppv),
+  decode_split_kernel<T, HD, NR><<<dim3(a.bh, a.n_split), NTHREADS, 0,
+                                   a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<float*>(a.ppv),
       static_cast<float*>(a.pm), static_cast<float*>(a.pl), a.rows, a.sq,
       a.t, a.n_vis, a.chunk, a.q_off, a.k_off, a.scale_log2);
   cudaError_t err = cudaGetLastError();
@@ -307,11 +325,21 @@ cudaError_t launch(const Args& a) {
 
 // Rows are padded to 4 or 8: the padded rows' arithmetic is cheap next to
 // the K/V bytes every row shares.
-template <int HD>
+template <typename T, int HD>
 cudaError_t dispatch_rows(const Args& a) {
-  if (a.rows <= 4) return launch<HD, 4>(a);
-  if (a.rows <= 8) return launch<HD, 8>(a);
+  if (a.rows <= 4) return launch<T, HD, 4>(a);
+  if (a.rows <= 8) return launch<T, HD, 8>(a);
   return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t dispatch_hd(const Args& a, int hd) {
+  switch (hd) {
+    case 32: return dispatch_rows<T, 32>(a);
+    case 64: return dispatch_rows<T, 64>(a);
+    case 128: return dispatch_rows<T, 128>(a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -320,15 +348,17 @@ cudaError_t dispatch_rows(const Args& a) {
 // 16-byte aligned.  The visible keys [0, n_vis) are cut into n_split
 // chunks of `chunk` keys.  With n_split > 1, ppv/pm/pl are f32 scratch of
 // [bh, n_split, rows, hd] / [bh, n_split, rows]; with n_split == 1 they
-// must be pv/m/l themselves.  Returns the CUDA error of the launches (0 on
-// success); the Python wrapper raises on anything else.
+// must be pv/m/l themselves.  dtype: the element type of q/k/v, 0 = bf16,
+// 1 = f16.  Returns the CUDA error of the launches (0 on success); the
+// Python wrapper raises on anything else.
 extern "C" int attention_decode_fwd(const void* q, const void* k,
                                     const void* v, void* pv, void* m,
                                     void* l, void* ppv, void* pm, void* pl,
                                     int bh, int rows, int sq, int t, int hd,
                                     int n_vis, int n_split, int chunk,
                                     long long q_off, long long k_off,
-                                    float scale_log2, void* stream) {
+                                    float scale_log2, int dtype,
+                                    void* stream) {
   if (bh <= 0 || rows <= 0 || sq <= 0 || t < 0 || n_split <= 0 ||
       n_split > 4096 || n_vis < 0 || n_vis > t ||
       (long long)n_split * chunk < n_vis)
@@ -339,10 +369,9 @@ extern "C" int attention_decode_fwd(const void* q, const void* k,
                pm,    pl,      bh,    rows,   sq,  t,     n_vis,
                n_split, chunk, q_off, k_off, scale_log2,
                static_cast<cudaStream_t>(stream)};
-  switch (hd) {
-    case 32: return (int)dispatch_rows<32>(a);
-    case 64: return (int)dispatch_rows<64>(a);
-    case 128: return (int)dispatch_rows<128>(a);
+  switch (dtype) {
+    case 0: return (int)dispatch_hd<__nv_bfloat16>(a, hd);
+    case 1: return (int)dispatch_hd<__half>(a, hd);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,6 +1,7 @@
-// Tensor-core prefill attention for Hopper (sm_90a), bf16 in, f32 out.
+// Tensor-core prefill attention for Hopper (sm_90a), bf16 or f16 in, f32
+// out.
 //
-// Replaces, for every bf16 shape with many query rows per KV head, the
+// Replaces, for every bf16 or f16 shape with many query rows per KV head, the
 // Pallas TPU kernel `_attn_kernel` (distributed_llm_dissemination_tpu/ops/
 // flash_attention.py:128, launched by `_block_attention_pallas` :176
 // through `pl.pallas_call` :229).  Same contract as every block-attention
@@ -27,7 +28,7 @@
 //    rows are 64 bytes), so shared-memory reads are free of bank conflicts.
 //  - S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
 //    memory.  The row max, rescale, mask and exp2 run on the accumulator
-//    fragment in registers.  P is rounded to bf16 in registers and is the
+//    fragment in registers.  P is rounded to T in registers and is the
 //    A operand of the O += P V wgmma (m64n{hd}k16); V is the B operand
 //    from shared memory, transposed by its descriptor (MN-major).  l is
 //    summed from the f32 p.
@@ -38,9 +39,15 @@
 //    both have released it (an mbarrier each way), so one warpgroup's
 //    softmax overlaps the other's products.  Row tiles run latest first,
 //    so the CTAs with the most keys start early.
-//  - Numerics: p is rounded to bf16 for the PV product (as the JAX model's
-//    gqa_attention rounds its probabilities), so per row
-//    |pv - pv_f32p| <= 2^-9 * l * max|v| plus f32 summation slack.
+//  - Numerics: p is rounded to the input type for the PV product (as the
+//    JAX model's gqa_attention rounds its probabilities to the model's
+//    dtype), so per row |pv - pv_f32p| <= 2^-9 * l * max|v| for bf16 and
+//    2^-11 * l * max|v| plus the f16 subnormal step 2^-25 per key for f16,
+//    plus f32 summation slack.
+//  - Types: the element type T is a template parameter (`dtype` 0 = bf16,
+//    1 = f16 at the C interface).  It picks the wgmma kind (.bf16.bf16 or
+//    .f16.f16), the rounding of P and the TMA map's data type; shared
+//    memory, swizzles and descriptors are the same for both 2-byte types.
 //
 // The TMA descriptors are encoded on the host per call with
 // cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
@@ -48,8 +55,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -61,7 +71,7 @@ constexpr int MAX_DEVICES = 64;
 constexpr float LN2 = 0.6931471805599453f;
 
 // Shared-memory layout of one head size.  A TMA box row is one swizzle
-// span (SW bytes, COLS bf16); hd 128 is two boxes side by side.
+// span (SW bytes, COLS 2-byte elements); hd 128 is two boxes side by side.
 template <int HD>
 struct Tiles {
   static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;
@@ -144,135 +154,118 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+// P rounded to the model's type, two values packed for a wgmma A register.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
 }
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 h = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
 
-// D (64 x 128, f32) (+)= A (64 x 16) * B (128 x 16), both bf16 from shared
+// The wgmma instructions below come in two kinds, `.f32.bf16.bf16` and
+// `.f32.f16.f16` (f32 accumulators either way); `KIND` names the operand
+// type and `if constexpr` picks one asm string per instance.  The
+// accumulator operand lists are shared.
+#define ACC16 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define ACC32 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+  "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+  "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define ACC64 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), \
+  "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), \
+  "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), \
+  "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), \
+  "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+  "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+  "+f"(d[62]), "+f"(d[63])
+
+// D (64 x 128, f32) (+)= A (64 x 16) * B (128 x 16), both from shared
 // memory through descriptors, both K-major; scale_d = 0 overwrites D.
+#define SS_N128(KIND) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." KIND "." KIND " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63" \
+  "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+template <bool F16>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (F16)
+    asm volatile(SS_N128("f16") : ACC64 : "l"(da), "l"(db), "r"(scale_d));
+  else
+    asm volatile(SS_N128("bf16") : ACC64 : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D (64 x 32, f32) += A (64 x 16, bf16 in registers) * B (16 x 32, bf16
-// from shared memory, MN-major: the hd dimension contiguous).
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+// D (64 x N, f32) += A (64 x 16, in registers) * B (16 x N, from shared
+// memory, MN-major: the hd dimension contiguous), N = 32, 64 or 128.
+#define RS_N32(KIND) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n32k16.f32." KIND "." KIND " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15" \
+  "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+#define RS_N64(KIND) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." KIND "." KIND " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31" \
+  "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+#define RS_N128(KIND) \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." KIND "." KIND " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63" \
+  "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+#define A_REGS "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3])
+
+template <int HD, bool F16>
+__device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 32) {
+    if constexpr (F16)
+      asm volatile(RS_N32("f16") : ACC16 : A_REGS, "l"(db), "r"(1));
+    else
+      asm volatile(RS_N32("bf16") : ACC16 : A_REGS, "l"(db), "r"(1));
+  } else if constexpr (HD == 64) {
+    if constexpr (F16)
+      asm volatile(RS_N64("f16") : ACC32 : A_REGS, "l"(db), "r"(1));
+    else
+      asm volatile(RS_N64("bf16") : ACC32 : A_REGS, "l"(db), "r"(1));
+  } else {
+    static_assert(HD == 128, "head dims 32, 64, 128");
+    if constexpr (F16)
+      asm volatile(RS_N128("f16") : ACC64 : A_REGS, "l"(db), "r"(1));
+    else
+      asm volatile(RS_N128("bf16") : ACC64 : A_REGS, "l"(db), "r"(1));
+  }
 }
 
-// D (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, bf16
-// from shared memory, MN-major: the hd dimension contiguous).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, bf16
-// from shared memory, MN-major: the hd dimension contiguous).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
-                                         const uint32_t (&a)[4], uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_pv<32>(float (&o)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_n32(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  wgmma_rs_n64(o, a, db);
-}
-template <>
-__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t db) {
-  wgmma_rs_n128(o, a, db);
-}
-
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS, 1)
 prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -280,15 +273,17 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                      float* __restrict__ pv, float* __restrict__ m_out,
                      float* __restrict__ l_out, int rows, int sq, int t,
                      long long q_off, long long k_off, float scale_log2) {
-  using T = Tiles<HD>;
+  using Tl = Tiles<HD>;
+  constexpr bool F16 = std::is_same<T, __half>::value;
+  static_assert(F16 || std::is_same<T, __nv_bfloat16>::value, "bf16 or f16");
   constexpr int NKT = BK / 8;  // key n-tiles of S (4 accumulators each)
   constexpr int NDT = HD / 8;  // hd n-tiles of O
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t s_q = (raw + 1023) & ~1023u;  // swizzle atoms need 1024
-  const uint32_t s_k = s_q + T::Q_BYTES;        // [2 stages][NBOX][BK][COLS]
-  const uint32_t s_v = s_k + 2 * T::KV_BYTES;
-  const uint32_t bar_q = s_v + 2 * T::KV_BYTES;
+  const uint32_t s_k = s_q + Tl::Q_BYTES;        // [2 stages][NBOX][BK][COLS]
+  const uint32_t s_v = s_k + 2 * Tl::KV_BYTES;
+  const uint32_t bar_q = s_v + 2 * Tl::KV_BYTES;
   const uint32_t bar_kv0 = bar_q + 8;      // stage loaded, + 8 * stage
   const uint32_t bar_free0 = bar_q + 24;   // stage consumed, + 8 * stage
 
@@ -330,13 +325,13 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     __syncthreads();
     if (tid == 0) {
-      mbar_expect_tx(bar_q, T::Q_BYTES);
-      for (int bx = 0; bx < T::NBOX; ++bx)
-        tma_load(s_q + bx * T::Q_BOX, &tm_q, bar_q, bx * T::COLS, r0, bh);
-      mbar_expect_tx(bar_kv0, 2 * T::KV_BYTES);
-      for (int bx = 0; bx < T::NBOX; ++bx) {
-        tma_load(s_k + bx * T::KV_BOX, &tm_k, bar_kv0, bx * T::COLS, 0, bh);
-        tma_load(s_v + bx * T::KV_BOX, &tm_v, bar_kv0, bx * T::COLS, 0, bh);
+      mbar_expect_tx(bar_q, Tl::Q_BYTES);
+      for (int bx = 0; bx < Tl::NBOX; ++bx)
+        tma_load(s_q + bx * Tl::Q_BOX, &tm_q, bar_q, bx * Tl::COLS, r0, bh);
+      mbar_expect_tx(bar_kv0, 2 * Tl::KV_BYTES);
+      for (int bx = 0; bx < Tl::NBOX; ++bx) {
+        tma_load(s_k + bx * Tl::KV_BOX, &tm_k, bar_kv0, bx * Tl::COLS, 0, bh);
+        tma_load(s_v + bx * Tl::KV_BOX, &tm_v, bar_kv0, bx * Tl::COLS, 0, bh);
       }
     }
     mbar_wait(bar_q, 0);
@@ -350,33 +345,33 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // otherwise, so one's softmax overlaps the other's products.
       if (kt >= 1) mbar_wait(bar_free0 + 8 * (stage ^ 1), ((kt - 1) >> 1) & 1);
       const uint32_t bar = bar_kv0 + 8 * (stage ^ 1);
-      const uint32_t off = (stage ^ 1) * T::KV_BYTES;
-      mbar_expect_tx(bar, 2 * T::KV_BYTES);
-      for (int bx = 0; bx < T::NBOX; ++bx) {
-        tma_load(s_k + off + bx * T::KV_BOX, &tm_k, bar, bx * T::COLS,
+      const uint32_t off = (stage ^ 1) * Tl::KV_BYTES;
+      mbar_expect_tx(bar, 2 * Tl::KV_BYTES);
+      for (int bx = 0; bx < Tl::NBOX; ++bx) {
+        tma_load(s_k + off + bx * Tl::KV_BOX, &tm_k, bar, bx * Tl::COLS,
                  (kt + 1) * BK, bh);
-        tma_load(s_v + off + bx * T::KV_BOX, &tm_v, bar, bx * T::COLS,
+        tma_load(s_v + off + bx * Tl::KV_BOX, &tm_v, bar, bx * Tl::COLS,
                  (kt + 1) * BK, bh);
       }
     }
     __syncwarp();
     mbar_wait(bar_kv0 + 8 * stage, (kt >> 1) & 1);
-    const uint32_t k_st = s_k + stage * T::KV_BYTES;
-    const uint32_t v_st = s_v + stage * T::KV_BYTES;
+    const uint32_t k_st = s_k + stage * Tl::KV_BYTES;
+    const uint32_t v_st = s_v + stage * Tl::KV_BYTES;
 
     // S = Q K^T for the warpgroup's 64 rows x BK keys.
     float s[BK / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      const int bx = kk * 16 / T::COLS;
-      const int within = (kk * 16 % T::COLS) * 2;  // bytes into the row
+      const int bx = kk * 16 / Tl::COLS;
+      const int within = (kk * 16 % Tl::COLS) * 2;  // bytes into the row
       const uint64_t da = make_desc(
-          s_q + bx * T::Q_BOX + wg * 64 * T::SW + within, 16, 8 * T::SW,
-          T::LAYOUT);
-      const uint64_t db = make_desc(k_st + bx * T::KV_BOX + within, 16,
-                                    8 * T::SW, T::LAYOUT);
-      wgmma_ss_n128(s, da, db, kk > 0);
+          s_q + bx * Tl::Q_BOX + wg * 64 * Tl::SW + within, 16, 8 * Tl::SW,
+          Tl::LAYOUT);
+      const uint64_t db = make_desc(k_st + bx * Tl::KV_BOX + within, 16,
+                                    8 * Tl::SW, Tl::LAYOUT);
+      wgmma_ss_n128<F16>(s, da, db, kk > 0);
     }
     wgmma_commit_wait();
     fence_regs(s);
@@ -434,23 +429,23 @@ prefill_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       o[4 * j + 3] *= al_b;
     }
 
-    // O += P V: P (bf16) from the S fragment is the A operand directly.
+    // O += P V: P (in T) from the S fragment is the A operand directly.
     uint32_t a[BK / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
-      a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-      a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-      a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      a[kk][0] = pack2<T>(s[8 * kk], s[8 * kk + 1]);
+      a[kk][1] = pack2<T>(s[8 * kk + 2], s[8 * kk + 3]);
+      a[kk][2] = pack2<T>(s[8 * kk + 4], s[8 * kk + 5]);
+      a[kk][3] = pack2<T>(s[8 * kk + 6], s[8 * kk + 7]);
     }
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       // 16 keys down from kk*16; the NBOX column boxes lie KV_BOX apart.
-      const uint64_t db = make_desc(v_st + kk * 16 * T::SW, T::KV_BOX,
-                                    8 * T::SW, T::LAYOUT);
-      wgmma_pv<HD>(o, a[kk], db);
+      const uint64_t db = make_desc(v_st + kk * 16 * Tl::SW, Tl::KV_BOX,
+                                    8 * Tl::SW, Tl::LAYOUT);
+      wgmma_pv<HD, F16>(o, a[kk], db);
     }
     wgmma_commit_wait();
     fence_regs(o);
@@ -509,16 +504,17 @@ EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map of a contiguous bf16 [bh, n, hd] tensor, boxes of
+// A 3-D map of a contiguous 2-byte [bh, n, hd] tensor of `type`, boxes of
 // [1, box_rows, cols] with the given swizzle; out-of-range rows read 0.
-bool make_map(CUtensorMap* map, const void* ptr, int bh, int n, int hd,
-              int box_rows, int cols, CUtensorMapSwizzle swizzle) {
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+              int bh, int n, int hd, int box_rows, int cols,
+              CUtensorMapSwizzle swizzle) {
   const cuuint64_t dims[3] = {(cuuint64_t)hd, (cuuint64_t)n, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)n * hd * 2};
   const cuuint32_t box[3] = {(cuuint32_t)cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode_tiled()(map, type, 3,
                         const_cast<void*>(ptr), dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -538,62 +534,84 @@ cudaError_t set_smem_once(Kernel kernel, int bytes, bool* done) {
   if (err == cudaSuccess) done[dev] = true;
   return err;
 }
-template <int HD>
+template <typename T, int HD>
 bool configured[MAX_DEVICES] = {};
 
-template <int HD>
+template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* pv,
                    void* m, void* l, int bh, int rows, int sq, int t,
                    long long q_off, long long k_off, float scale_log2,
                    cudaStream_t stream) {
-  using T = Tiles<HD>;
-  auto kernel = prefill_wgmma_kernel<HD>;
-  cudaError_t err = set_smem_once(kernel, T::SMEM, configured<HD>);
+  using Tl = Tiles<HD>;
+  auto kernel = prefill_wgmma_kernel<T, HD>;
+  cudaError_t err = set_smem_once(kernel, Tl::SMEM, configured<T, HD>);
   if (err != cudaSuccess) return err;
   if (encode_tiled() == nullptr) return cudaErrorNotSupported;
-  const CUtensorMapSwizzle swz = T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                              : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapSwizzle swz = Tl::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                               : CU_TENSOR_MAP_SWIZZLE_64B;
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, bh, rows, HD, BQ, T::COLS, swz))
+  if (!make_map(&tq, type, q, bh, rows, HD, BQ, Tl::COLS, swz))
     return cudaErrorInvalidValue;
   if (t == 0) {
     tk = tv = tq;  // an empty K/V has no address to map; no tile is loaded
-  } else if (!make_map(&tk, k, bh, t, HD, BK, T::COLS, swz) ||
-             !make_map(&tv, v, bh, t, HD, BK, T::COLS, swz)) {
+  } else if (!make_map(&tk, type, k, bh, t, HD, BK, Tl::COLS, swz) ||
+             !make_map(&tv, type, v, bh, t, HD, BK, Tl::COLS, swz)) {
     return cudaErrorInvalidValue;
   }
   dim3 grid((rows + BQ - 1) / BQ, bh);
-  kernel<<<grid, NTHREADS, T::SMEM, stream>>>(
+  kernel<<<grid, NTHREADS, Tl::SMEM, stream>>>(
       tq, tk, tv, static_cast<float*>(pv), static_cast<float*>(m),
       static_cast<float*>(l), rows, sq, t, q_off, k_off, scale_log2);
   return cudaGetLastError();
 }
 
+// The head-size instance of one element type.
+template <typename T>
+cudaError_t dispatch_hd(const void* q, const void* k, const void* v,
+                        void* pv, void* m, void* l, int bh, int rows, int sq,
+                        int t, int hd, long long q_off, long long k_off,
+                        float scale_log2, cudaStream_t s) {
+  switch (hd) {
+    case 32:
+      return launch<T, 32>(q, k, v, pv, m, l, bh, rows, sq, t, q_off, k_off,
+                           scale_log2, s);
+    case 64:
+      return launch<T, 64>(q, k, v, pv, m, l, bh, rows, sq, t, q_off, k_off,
+                           scale_log2, s);
+    case 128:
+      return launch<T, 128>(q, k, v, pv, m, l, bh, rows, sq, t, q_off, k_off,
+                            scale_log2, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // bh = b * kvh, rows = g * sq; every tensor contiguous and 16-byte
-// aligned, q/k/v bf16, outputs f32.  scale_log2 = log2(e) / sqrt(hd).
-// Returns the CUDA error of the launch (0 on success); the Python wrapper
-// raises on anything else.
+// aligned, q/k/v of one 2-byte type (dtype 0 = bf16, 1 = f16), outputs
+// f32.  scale_log2 = log2(e) / sqrt(hd).  Returns the CUDA error of the
+// launch (0 on success); the Python wrapper raises on anything else.
 extern "C" int attention_prefill_fwd(const void* q, const void* k,
                                      const void* v, void* pv, void* m,
                                      void* l, int bh, int rows, int sq,
                                      int t, int hd, long long q_off,
                                      long long k_off, float scale_log2,
-                                     void* stream) {
+                                     int dtype, void* stream) {
   if (bh <= 0 || rows <= 0 || sq <= 0 || t < 0 || bh > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 32:
-      return (int)launch<32>(q, k, v, pv, m, l, bh, rows, sq, t, q_off, k_off,
-                             scale_log2, s);
-    case 64:
-      return (int)launch<64>(q, k, v, pv, m, l, bh, rows, sq, t, q_off, k_off,
-                             scale_log2, s);
-    case 128:
-      return (int)launch<128>(q, k, v, pv, m, l, bh, rows, sq, t, q_off,
-                              k_off, scale_log2, s);
+  switch (dtype) {
+    case 0:
+      return (int)dispatch_hd<__nv_bfloat16>(q, k, v, pv, m, l, bh, rows, sq,
+                                             t, hd, q_off, k_off, scale_log2,
+                                             s);
+    case 1:
+      return (int)dispatch_hd<__half>(q, k, v, pv, m, l, bh, rows, sq, t, hd,
+                                      q_off, k_off, scale_log2, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -17,9 +17,9 @@
 //    is `float(nibble - 8) * scale[r, c / g]` with g = cols / groups -- or
 //    a "raw" section (1-D leaves, odd cols): the leaf's bytes in the output
 //    type, copied as they are.
-// Every product is rounded once to the output type (bf16 by
-// round-to-nearest-even, or f32 as is): bit-identical to JAX's
-// `(q.astype(f32) * scale).astype(dt)`.
+// Every product is rounded once to the output type (bf16 or f16 by
+// round-to-nearest-even, f16 with its subnormals and overflow to inf, or
+// f32 as is): bit-identical to JAX's `(q.astype(f32) * scale).astype(dt)`.
 //
 // Bound on an H100 SXM: bytes.  One blob is read once and its leaves
 // written once; a llama3-8b layer blob is 218 MB (int8) or 116 MB (int4) in
@@ -47,6 +47,7 @@
 //    it did not test.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -144,6 +145,31 @@ __device__ __forceinline__ void store_run(__nv_bfloat16* dst, const float (&v)[R
 #pragma unroll
     for (int i = 0; i < RUN; ++i)
       if (i < n) dst[i] = __float2bfloat16_rn(v[i]);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  return (uint32_t)__half_as_ushort(__float2half_rn(lo)) |
+         ((uint32_t)__half_as_ushort(__float2half_rn(hi)) << 16);
+}
+
+__device__ __forceinline__ void store_run(__half* dst, const float (&v)[RUN],
+                                          int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
+  if (n == RUN && (a & 15) == 0) {
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    d[0] = make_uint4(pack_f16(v[0], v[1]), pack_f16(v[2], v[3]),
+                      pack_f16(v[4], v[5]), pack_f16(v[6], v[7]));
+    d[1] = make_uint4(pack_f16(v[8], v[9]), pack_f16(v[10], v[11]),
+                      pack_f16(v[12], v[13]), pack_f16(v[14], v[15]));
+  } else if (n == RUN && (a & 3) == 0) {
+    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+#pragma unroll
+    for (int i = 0; i < RUN / 2; ++i) d[i] = pack_f16(v[2 * i], v[2 * i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < RUN; ++i)
+      if (i < n) dst[i] = __float2half_rn(v[i]);
   }
 }
 
@@ -307,6 +333,8 @@ int launch(const void* blob, const long long* geo, int n_leaves,
     dequant_kernel<KIND, __nv_bfloat16><<<(int)blocks, NTHREADS, 0, s>>>(b, t);
   else if (out_kind == 1)
     dequant_kernel<KIND, float><<<(int)blocks, NTHREADS, 0, s>>>(b, t);
+  else if (out_kind == 2)
+    dequant_kernel<KIND, __half><<<(int)blocks, NTHREADS, 0, s>>>(b, t);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -319,7 +347,7 @@ int launch(const void* blob, const long long* geo, int n_leaves,
 // data_off, item_begin, dst, nbytes, rows, cols, groups, runs_per_row (the
 // Python wrapper computes them from the leaf table and checks them against
 // the blob and the outputs).  items: the total work items.  out_kind:
-// 0 = bf16, 1 = f32.  Each returns the CUDA error of the launch (0 on
+// 0 = bf16, 1 = f32, 2 = f16.  Each returns the CUDA error of the launch (0 on
 // success); the wrapper raises on anything else.
 extern "C" int dequant_int8_launch(const void* blob, const long long* geo,
                                    int n_leaves, long long items,

@@ -224,15 +224,36 @@ def layer_slice(stacked: Dict[str, torch.Tensor], i: int
     return {name: a[i] for name, a in stacked.items()}
 
 
+class _HeadF32(torch.autograd.Function):
+    """``torch.mm(x2, w, out_dtype=float32)`` with a gradient: the two
+    backward products take the f32 cotangent rounded to the weights'
+    2-byte type and accumulate in f32, each result rounded once to its
+    operand's type."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g2 = g.to(w.dtype)
+        dx = torch.mm(g2, w.t(), out_dtype=torch.float32).to(x2.dtype)
+        dw = torch.mm(x2.t(), g2, out_dtype=torch.float32).to(w.dtype)
+        return dx, dw
+
+
 def lm_head_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """f32 logits of x [..., d] @ w [d, vocab] from bf16 operands with f32
-    accumulation.  On CUDA, cuBLAS writes f32 straight from the bf16
-    operands (no f32 copy of the 1 GB lm_head); on the CPU, where that
-    form does not exist, the operands are upcast (exact for bf16)."""
+    """f32 logits of x [..., d] @ w [d, vocab] from bf16 (or f16) operands
+    with f32 accumulation.  On CUDA, cuBLAS writes f32 straight from the
+    2-byte operands (no f32 copy of the 1 GB lm_head; ``_HeadF32`` gives
+    it a gradient for training); on the CPU, where that form does not
+    exist, the operands are upcast (exact for bf16 and f16)."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cuda" and w.dtype != torch.float32:
-        out = torch.mm(x2, w, out_dtype=torch.float32)
+        out = _HeadF32.apply(x2, w)
     else:
         out = x2.float() @ w.float()
     return out.reshape(*lead, w.shape[-1])

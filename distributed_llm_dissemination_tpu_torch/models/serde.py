@@ -246,3 +246,19 @@ def params_from_numpy(np_params: Dict[str, Any], device=None) -> Dict[str, Any]:
         return _tensor_from_numpy(x).to(dev)
 
     return conv(np_params)
+
+
+def train_state_from_numpy(np_params: Dict[str, Any], np_opt: Dict[str, Any],
+                           device=None):
+    """A JAX params pytree and the JAX package's AdamW state (``m``, ``v``
+    trees and ``step``, as numpy) -> the port's ``(params, opt_state)`` on
+    ``device`` (None = the CUDA card), bit-identical: moments f32, the
+    step a 0-d int32 tensor, as ``models.sharded.init_adamw_state`` makes
+    them."""
+    dev = resolve_device(device)
+    params = params_from_numpy(np_params, dev)
+    opt = {"m": params_from_numpy(np_opt["m"], dev),
+           "v": params_from_numpy(np_opt["v"], dev),
+           "step": torch.tensor(int(np.asarray(np_opt["step"])),
+                                dtype=torch.int32, device=dev)}
+    return params, opt

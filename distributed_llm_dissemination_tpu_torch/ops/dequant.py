@@ -15,14 +15,19 @@ One call decodes one wire blob.  The blob's layout comes as a leaf table
 (``Leaf`` entries in blob order, built by ``models/quant.leaf_table``),
 and each leaf is written into its own preallocated output -- for a
 stacked boot, slot ``i`` of an ``(n, *shape)`` tensor.  Every element is
-``float(q) * scale`` in f32, rounded once to the output type, which is
-bit-identical to the JAX package's ``(q.astype(f32) * scale).astype(dt)``.
+``float(q) * scale`` in f32, rounded once to the output type (bf16, f16
+or f32), which is bit-identical to the JAX package's
+``(q.astype(f32) * scale).astype(dt)``: ``copy_`` into a bf16 or f16
+tensor rounds to nearest even, as the kernels' ``__float2bfloat16_rn`` and
+``__float2half_rn`` do.
 
 ``dequant`` takes the plain version only for a blob on the CPU.  For a
 CUDA blob it launches the kernel or raises.  ``launches`` counts the
 kernel launches, ``launches_by_kernel`` which kernel each was, and
 ``plain_calls`` the calls of each plain version, so a run can show which
-path it took; ``dequant`` also returns the launches it made.
+path it took; ``launches_by_instance`` splits each kernel's launches by
+output type (``"int8:float16"``); ``dequant`` also returns the launches it
+made.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ KINDS = ("int8", "int4")  # K2, K3
 _SYMBOLS = {"int8": "dequant_int8_launch", "int4": "dequant_int4_launch"}
 RUN = 16  # elements (int8) or packed bytes (int4, raw) per work item
 MAX_LEAVES = 16  # the kernels' by-value table
-OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1}
+OUT_KINDS = {torch.bfloat16: 0, torch.float32: 1, torch.float16: 2}
 SCALE_BYTES = 4  # one f32 scale
 _LAYOUTS = {"int8": ("q8",), "int4": ("q4", "raw")}
 _LAYOUT_IDS = {"q8": 0, "q4": 1, "raw": 2}  # the source's LAYOUT_*
@@ -50,6 +55,8 @@ _LAYOUT_IDS = {"q8": 0, "q4": 1, "raw": 2}  # the source's LAYOUT_*
 # and calls of each plain version.
 launches = 0
 launches_by_kernel = {kind: 0 for kind in KINDS}
+launches_by_instance = {f"{kind}:{str(dt).split('.')[-1]}": 0
+                        for kind in KINDS for dt in OUT_KINDS}
 plain_calls = {kind: 0 for kind in KINDS}
 
 _fns = {}
@@ -80,6 +87,8 @@ def reset_counts() -> None:
         for kind in KINDS:
             launches_by_kernel[kind] = 0
             plain_calls[kind] = 0
+        for name in launches_by_instance:
+            launches_by_instance[name] = 0
 
 
 def _kernel(kind: str):
@@ -110,8 +119,8 @@ def _check(kind: str, blob: torch.Tensor, table: Sequence[Leaf],
             raise ValueError(f"leaf {leaf.name} at {leaf.offset}, expected "
                              f"{off}")
         if out.dtype not in OUT_KINDS or out.dtype != outs[0].dtype:
-            raise ValueError(f"outputs must all be bfloat16 or all float32, "
-                             f"got {out.dtype}")
+            raise ValueError(f"outputs must all be bfloat16, all float16 or "
+                             f"all float32, got {out.dtype}")
         if out.device != blob.device or not out.is_contiguous():
             raise ValueError(f"output of {leaf.name} must be contiguous on "
                              f"{blob.device}")
@@ -212,8 +221,8 @@ def _geometry(table: Sequence[Leaf],
 def dequant(kind: str, blob: torch.Tensor, table: Sequence[Leaf],
             outs: Sequence[torch.Tensor]) -> int:
     """Decode one ``kind`` ("int8": K2, "int4": K3) wire blob: leaf
-    ``table[i]`` into ``outs[i]`` (contiguous, its leaf's shape, all bf16
-    or all f32, on the blob's device).  A CPU blob takes the plain
+    ``table[i]`` into ``outs[i]`` (contiguous, its leaf's shape, all bf16,
+    all f16 or all f32, on the blob's device).  A CPU blob takes the plain
     version; a CUDA blob launches the kernel or raises.  Returns the
     kernel launches this call made (0 or 1)."""
     global launches
@@ -239,4 +248,6 @@ def dequant(kind: str, blob: torch.Tensor, table: Sequence[Leaf],
     with _count_lock:
         launches += 1
         launches_by_kernel[kind] += 1
+        launches_by_instance[
+            f"{kind}:{str(outs[0].dtype).split('.')[-1]}"] += 1
     return 1

@@ -12,26 +12,30 @@ One function, a plain version and three Hopper kernels:
 - ``block_attention_ref``: plain PyTorch (einsum + where), the twin of
   the JAX package's ``_block_attention_ref``.  It materialises the
   [sq, t] logits.
-- ``csrc/attention_decode.cu``: split-KV decode for bf16 calls with at
-  most ``DECODE_MAX_ROWS`` query rows per KV head (``g * sq``).  The
-  visible keys are cut into chunks (``split_plan``) so the card's SMs all
-  work; a second small kernel merges the chunks' partials.
+- ``csrc/attention_decode.cu``: split-KV decode for bf16 and f16 calls
+  with at most ``DECODE_MAX_ROWS`` query rows per KV head (``g * sq``).
+  The visible keys are cut into chunks (``split_plan``) so the card's SMs
+  all work; a second small kernel merges the chunks' partials.
 - ``csrc/attention_prefill.cu``: tensor-core prefill (``wgmma`` fed by
-  TMA) for every other bf16 call.  It rounds p to bf16 for the PV
-  product, which bounds its pv error against the plain version by
-  ``2**-9 * l * max|v|`` per row (``BF16_P_REL``).
+  TMA) for every other bf16 or f16 call.  It rounds p to the input type
+  for the PV product (as the JAX model's ``gqa_attention`` rounds its
+  probabilities to the model's dtype), which bounds its pv error against
+  the plain version by ``P_REL[dtype] * l * max|v|`` per row, plus, for
+  f16, ``F16_P_ABS * max|v|`` per visible key (``p_round_bound``).
 - ``csrc/block_attention.cu``: the scalar f32 kernel, for f32 inputs.
 
 ``kernel_for(sq, g, dtype)`` picks among them; the choice depends on
-nothing else.  Each source is built with ``nvcc`` on first use and called
-through ``ctypes`` (``ops/cuda_build.py``); its source note gives its
-bounds and design.
+nothing else.  The decode and prefill sources hold a bf16 and an f16
+instance each (one template parameter; ``DTYPE_IDS``).  Each source is
+built with ``nvcc`` on first use and called through ``ctypes``
+(``ops/cuda_build.py``); its source note gives its bounds and design.
 
 ``block_attention`` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the chosen kernel or raises.  ``launches``
 counts the calls that launched, ``launches_by_kernel`` which kernel
 served each, and ``plain_calls`` the calls that took the plain version,
-so a run can show which path it took.
+so a run can show which path it took; ``launches_by_instance`` splits
+each kernel's launches by input type (``"prefill:float16"``).
 
 The port's model (``models/llama.py``, ``models/generate.py``) runs
 every attention through ``block_attention``: the cache-less forward is
@@ -58,8 +62,15 @@ DECODE_MAX_ROWS = 8  # g * sq at or below this takes the decode kernel
 SMS = 132  # streaming multiprocessors of an H100 SXM
 DECODE_CTAS_PER_SM = 2  # split target: about two decode CTAs per SM
 DECODE_CHUNK_ALIGN = 32  # split chunks are whole multiples of this
-# bf16 rounding of p in the prefill kernel: |p_bf16 - p| <= 2**-9 * p.
+# The prefill kernel's rounding of p to the input type: |p_r - p| <=
+# P_REL * p, and for f16 below its normal range (p < 2**-14) at most half
+# its subnormal step, F16_P_ABS.
 BF16_P_REL = 2.0 ** -9
+P_REL = {torch.bfloat16: BF16_P_REL, torch.float16: 2.0 ** -11}
+F16_P_ABS = 2.0 ** -25
+# The element type id of the two-byte kernels' C interface (``dtype``).
+DTYPE_IDS = {torch.bfloat16: 0, torch.float16: 1}
+INPUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 LOG2E = 1.4426950408889634
 
 # Calls that launched a kernel since the last reset_counts(), in all and
@@ -67,6 +78,9 @@ LOG2E = 1.4426950408889634
 # reads them after).
 launches = 0
 launches_by_kernel = {name: 0 for name in SOURCES}
+launches_by_instance = {
+    f"{name}:{str(dt).split('.')[-1]}": 0 for name in SOURCES
+    for dt in ((torch.float32,) if name == "scalar" else DTYPE_IDS)}
 plain_calls = 0
 
 _fns = {}
@@ -75,8 +89,9 @@ _ONE_PASS_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                   + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p])
 _ARGTYPES = {
     "decode": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-               + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p]),
-    "prefill": _ONE_PASS_ARGS,
+               + [ctypes.c_longlong] * 2
+               + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    "prefill": (_ONE_PASS_ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p]),
     "scalar": _ONE_PASS_ARGS,
 }
 _SYMBOLS = {"decode": "attention_decode_fwd",
@@ -90,11 +105,13 @@ def reset_counts() -> None:
     plain_calls = 0
     for name in launches_by_kernel:
         launches_by_kernel[name] = 0
+    for name in launches_by_instance:
+        launches_by_instance[name] = 0
 
 
 def kernel_for(sq: int, g: int, dtype: torch.dtype) -> str:
     """Which kernel serves a CUDA call: ``"scalar"`` for f32 inputs,
-    ``"decode"`` for bf16 with ``g * sq <= DECODE_MAX_ROWS``, else
+    ``"decode"`` for bf16 or f16 with ``g * sq <= DECODE_MAX_ROWS``, else
     ``"prefill"``."""
     if dtype == torch.float32:
         return "scalar"
@@ -143,10 +160,9 @@ def _check(qg, k, v) -> None:
     if tuple(k.shape) != (b, kvh, t, hd) or tuple(v.shape) != tuple(k.shape):
         raise ValueError(f"k/v shapes {tuple(k.shape)}, {tuple(v.shape)} do "
                          f"not match qg {tuple(qg.shape)}")
-    if not (qg.dtype == k.dtype == v.dtype) or qg.dtype not in (
-            torch.float32, torch.bfloat16):
-        raise ValueError(f"dtypes must all be float32 or bfloat16, got "
-                         f"{qg.dtype}, {k.dtype}, {v.dtype}")
+    if not (qg.dtype == k.dtype == v.dtype) or qg.dtype not in INPUT_DTYPES:
+        raise ValueError(f"dtypes must all be float32, bfloat16 or float16, "
+                         f"got {qg.dtype}, {k.dtype}, {v.dtype}")
     if not (qg.device == k.device == v.device):
         raise ValueError(f"tensors on different devices: {qg.device}, "
                          f"{k.device}, {v.device}")
@@ -225,10 +241,11 @@ def block_attention(qg, k, v, q_off: int, k_off: int):
             part = (base, base + 4 * n_part * hd,
                     base + 4 * n_part * (hd + 1))
         err = fn(*ptrs, *part, bh, rows, sq, t, hd, n_vis, n_split, chunk,
-                 int(q_off), int(k_off), LOG2E / math.sqrt(hd), stream)
+                 int(q_off), int(k_off), LOG2E / math.sqrt(hd),
+                 DTYPE_IDS[qg.dtype], stream)
     elif name == "prefill":
         err = fn(*ptrs, bh, rows, sq, t, hd, int(q_off), int(k_off),
-                 LOG2E / math.sqrt(hd), stream)
+                 LOG2E / math.sqrt(hd), DTYPE_IDS[qg.dtype], stream)
     else:
         err = fn(*ptrs, bh, rows, sq, t, hd, int(q_off), int(k_off),
                  math.sqrt(hd), stream)
@@ -237,7 +254,19 @@ def block_attention(qg, k, v, q_off: int, k_off: int):
                            f"CUDA error {err}")
     launches += 1
     launches_by_kernel[name] += 1
+    launches_by_instance[f"{name}:{str(qg.dtype).split('.')[-1]}"] += 1
     return pv, m, l
+
+
+def p_round_bound(l, n_keys: int, vmax: float, dtype):
+    """Per-row bound on the prefill kernel's pv error from rounding p to
+    ``dtype`` (module docstring): ``P_REL * l * vmax``, plus ``F16_P_ABS *
+    vmax`` per visible key for f16, whose small p fall into subnormals.
+    ``l``: the rows' normalisers; ``n_keys``: the keys a row can see."""
+    bound = P_REL[dtype] * l * vmax
+    if dtype == torch.float16:
+        bound = bound + F16_P_ABS * n_keys * vmax
+    return bound
 
 
 def merge_partials(carry, part):

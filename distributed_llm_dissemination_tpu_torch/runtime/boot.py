@@ -86,17 +86,6 @@ def blob_donate_ok(src) -> bool:
     return arr.device.type != "cpu"
 
 
-def refuse_float16(cfg) -> None:
-    """Raise before any device work when ``cfg`` is a float16 model: the
-    block-attention kernel (K1) has bf16 and f32 instances only, and
-    casting the weights to bf16 would serve a different model."""
-    if cfg.dtype == torch.float16:
-        raise NotImplementedError(
-            f"{cfg.name}: booting a float16 model needs K1's float16 "
-            "instances, not ported yet (ROADMAP, port Queue 2: K1 float16 "
-            "instances)")
-
-
 def classify_held_blobs(cfg, held_ids) -> tuple:
     """The boot's view of a held blob-id set: ``(layer_ids, full)``.
     Raises ValueError for sets no boot shape accepts (no layers, or a
@@ -259,9 +248,7 @@ def precompile_boot(
     warm-up).  On the CPU the same calls take the plain paths.  Returns
     ``{"compiled": [...], "launches": {kernel: n}}`` naming what was
     warmed; a codec with no device decode raises.  A held set no boot
-    shape accepts warms nothing.  A float16 model raises
-    (``refuse_float16``)."""
-    refuse_float16(cfg)
+    shape accepts warms nothing."""
     try:
         classify_held_blobs(cfg, blob_ids)
     except ValueError:
@@ -350,8 +337,7 @@ def boot_from_layers(
     block-attention kernel; ``block_attention_ref`` runs the plain
     version.  Returns a BootResult whose ``seconds`` is the time from
     blob assembly to the first forward's logits being ready on the
-    device (TTFT).  A float16 model raises (``refuse_float16``)."""
-    refuse_float16(cfg)
+    device (TTFT)."""
     dev = resolve_device(device)
     t0 = time.monotonic()
     head_id = serde.head_blob_id(cfg)

@@ -6,8 +6,8 @@ kernel itself, run in interpret mode on the CPU (``FORCE_PALLAS``, as
 ``tests/test_flash_attention.py`` does), on the same numpy-made inputs.
 
 Tolerances: f32 inputs ``rtol=1e-5`` (both sides sum f32 products in a
-different order); bf16 inputs are compared in f32 -- both upcast the bf16
-values exactly, so the same ``rtol=1e-5`` holds.  The CUDA kernel itself
+different order); bf16 and f16 inputs are compared in f32 -- both sides
+upcast the 2-byte values exactly, so the same ``rtol=1e-5`` holds.  The CUDA kernel itself
 runs only on the card (``cuda`` marker; ``chip_smoke.py`` holds it against
 the plain version at the serving shapes).
 """
@@ -45,13 +45,16 @@ def pallas_forced():
         jfa.FORCE_PALLAS = prev
 
 
-def _qkv(seed, b=1, kvh=2, g=2, sq=256, t=256, hd=128, bf16=False):
+def _qkv(seed, b=1, kvh=2, g=2, sq=256, t=256, hd=128, bf16=False,
+         f16=False):
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal(s).astype(np.float32) for s in
             ((b, kvh, g, sq, hd), (b, kvh, t, hd), (b, kvh, t, hd))]
     if bf16:
         # Round once to bf16 in numpy-land; both sides get the same bits.
         arrs = [np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in arrs]
+    if f16:
+        arrs = [a.astype(np.float16) for a in arrs]
     return arrs
 
 
@@ -106,6 +109,46 @@ def test_ref_bf16_inputs_compared_in_f32(q_off, k_off):
     arrs = _qkv(2, bf16=True)
     _assert_close(_run_port(arrs, q_off, k_off),
                   _run_jax(arrs, q_off, k_off))
+
+
+@pytest.mark.parametrize("q_off,k_off", OFFSETS)
+def test_ref_f16_inputs_match_jax_oracle(q_off, k_off):
+    arrs = _qkv(9, f16=True)
+    _assert_close(_run_port(arrs, q_off, k_off),
+                  _run_jax(arrs, q_off, k_off))
+
+
+@pytest.mark.parametrize("q_off,k_off", [(0, 0), (128, 0)])
+def test_ref_f16_inputs_match_pallas_interpret(q_off, k_off):
+    arrs = _qkv(10, f16=True)
+    _assert_close(_run_port(arrs, q_off, k_off),
+                  _run_jax(arrs, q_off, k_off, pallas=True))
+
+
+def test_kernel_for_routes_f16_as_bf16():
+    for sq, g in ((1, 4), (2, 4), (1, 8), (3, 4), (128, 4), (2048, 4)):
+        assert tfa.kernel_for(sq, g, torch.float16) == \
+            tfa.kernel_for(sq, g, torch.bfloat16)
+    assert tfa.kernel_for(1, 4, torch.float16) == "decode"
+    assert tfa.kernel_for(2048, 4, torch.float16) == "prefill"
+    assert tfa.kernel_for(2048, 4, torch.float32) == "scalar"
+
+
+def test_p_round_bound_covers_f16_rounding_of_p():
+    """The prefill kernel's pv bound for f16 (``p_round_bound``): p
+    rounded to f16, subnormals included, moves pv by no more than the
+    bound, on rows whose p spans the normal and the subnormal range."""
+    rng = np.random.default_rng(11)
+    t, hd = 300, 64
+    logits = torch.from_numpy(rng.uniform(-25, 0, (6, t)).astype(np.float32))
+    p = torch.exp(logits - logits.amax(-1, keepdim=True))
+    v = torch.from_numpy(rng.standard_normal((t, hd)).astype(np.float32))
+    exact = p @ v
+    for dtype in (torch.float16, torch.bfloat16):
+        rounded = p.to(dtype).float() @ v
+        bound = tfa.p_round_bound(p.sum(-1), t, float(v.abs().max()), dtype)
+        assert bool(((rounded - exact).abs().amax(-1) <= bound).all()), dtype
+    assert bool((p < 2.0 ** -14).any())  # the subnormal range is hit
 
 
 @pytest.mark.parametrize("sq,t,hd,q_off", [
@@ -207,6 +250,12 @@ def test_wrapper_rejects_bad_inputs(bad):
     (1, 2, 2, 100, 77, 32, 40, 0, torch.bfloat16),
     (1, 2, 2, 64, 64, 128, 0, 32, torch.bfloat16),     # masked rows
     (1, 2, 2, 64, 0, 64, 0, 0, torch.bfloat16),        # empty block
+    # the f16 instances of both
+    (1, 8, 4, 1, 2048, 128, 2047, 0, torch.float16),
+    (1, 2, 4, 2, 300, 32, 250, 0, torch.float16),
+    (1, 8, 4, 128, 128, 128, 0, 0, torch.float16),
+    (1, 2, 2, 77, 300, 64, 250, 0, torch.float16),
+    (1, 2, 2, 64, 64, 128, 0, 32, torch.float16),     # masked rows
 ])
 def test_cuda_kernel_matches_plain_version(case):
     if not torch.cuda.is_available():
@@ -226,10 +275,11 @@ def test_cuda_kernel_matches_plain_version(case):
     want = tfa.block_attention_ref(qg, k, v, q_off, k_off)
     for g_, w in zip(got[1:], want[1:]):
         torch.testing.assert_close(g_, w, rtol=1e-4, atol=1e-4)
-    # pv: the prefill kernel rounds p to bf16 (module docstring), so its
-    # per-row bound is BF16_P_REL * l * max|v| on top of the f32 slack.
+    # pv: the prefill kernel rounds p to the input type (module
+    # docstring), so its per-row bound is p_round_bound on top of the f32
+    # slack.
     slack = 1e-4 * (1 + want[0].abs())
     if name == "prefill" and t:
-        slack = slack + (tfa.BF16_P_REL * want[2] * v.float().abs().max()
-                         )[..., None]
+        slack = slack + tfa.p_round_bound(
+            want[2], t, float(v.float().abs().max()), dtype)[..., None]
     assert bool(((got[0] - want[0]).abs() <= slack).all())

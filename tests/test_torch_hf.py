@@ -23,8 +23,8 @@ Added for the port:
 - every rejection raises the JAX package's error type and message;
 - ``models/hf.py`` imports and reads with ``jax``, ``safetensors``,
   ``transformers`` and ``ml_dtypes`` blocked;
-- a float16 model fabricates (raw and int8, as JAX does) but refuses to
-  boot, naming the ROADMAP item;
+- a float16 model fabricates (raw, int8 and int4, as JAX does) and boots
+  in f16, its logits and greedy ids held against the JAX package's;
 - a mixed cluster over TCP: a JAX leader fabricating from the checkpoint
   with a port seeder fabricating from the same checkpoint, delivered
   byte-exact to a port dest with every digest verified.
@@ -482,7 +482,17 @@ def test_imports_and_reads_with_jax_safetensors_transformers_blocked(hf_dir):
         cfg, cfg.n_layers)
 
 
-def test_float16_fabricates_like_jax_but_does_not_boot(tmp_path):
+def test_float16_fabricates_like_jax_and_boots(tmp_path):
+    """A float16 checkpoint fabricates like JAX (raw, int8 and int4 blobs)
+    and boots in f16, with no cast to bf16: the booted logits agree with
+    the JAX package's forward of the same checkpoint within
+    ``tests/test_torch_model.py``'s bound (max 0.1, mean 0.02), and the
+    greedy ids equal JAX's."""
+    import jax.numpy as jnp
+
+    from distributed_llm_dissemination_tpu.models import generate as jgen
+    from distributed_llm_dissemination_tpu.models import llama as jllama
+
     path = _write_checkpoint(str(tmp_path / "ck"), "float16", "float16")
     name = "hf:" + path
     cfg, jcfg = hf.config_from_dir(path), jhf.config_from_dir(path)
@@ -493,10 +503,22 @@ def test_float16_fabricates_like_jax_but_does_not_boot(tmp_path):
             raw = hf.blob_from_name(name, b)
             assert quant.encode_blob(cfg, b, raw, codec) == \
                 jquant.encode_blob(jcfg, b, raw, codec), (codec, b)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*float16"):
-        tboot.boot_from_layers(cfg, seed_layers, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*float16"):
-        tboot.precompile_boot(cfg, blob_ids, device="cpu")
+    warm = tboot.precompile_boot(cfg, blob_ids, device="cpu")
+    assert warm["compiled"], warm
+    res = tboot.boot_from_layers(cfg, seed_layers, device="cpu")
+    assert res.kind == "full"
+    assert all(t.dtype == torch.float16 for t in res.params["layers"].values())
+    assert res.params["embed"].dtype == torch.float16
+    jparams = jhf.params_from_dir(path)
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab, (2, 16))
+    got = forward(res.params, torch.from_numpy(tokens), cfg).numpy()
+    want = np.asarray(jllama.forward(jparams, jnp.asarray(tokens), jcfg))
+    err = np.abs(got - want)
+    assert err.max() < 0.1 and err.mean() < 0.02, (err.max(), err.mean())
+    prompt = tokens[:1, :6]
+    ids = generate(res.params, torch.from_numpy(prompt), cfg, max_new=12)
+    jids = np.asarray(jgen.generate(jparams, jnp.asarray(prompt), jcfg, 12))
+    np.testing.assert_array_equal(ids.numpy(), jids)
 
 
 @pytest.mark.timeout(120)

@@ -23,6 +23,9 @@ from distributed_llm_dissemination_tpu_torch.models import generate as tgen
 from distributed_llm_dissemination_tpu_torch.models import llama as tllama
 from distributed_llm_dissemination_tpu_torch.models import quant as tquant
 from distributed_llm_dissemination_tpu_torch.models import serde as tserde
+from distributed_llm_dissemination_tpu_torch.models import sharded as tsharded
+from distributed_llm_dissemination_tpu_torch.models import (
+    train_ckpt as ttrain_ckpt)
 from distributed_llm_dissemination_tpu_torch.ops import cuda_build
 from distributed_llm_dissemination_tpu_torch.ops import dequant as tdequant
 from distributed_llm_dissemination_tpu_torch.ops import reassembly as tre
@@ -56,6 +59,10 @@ CLI = [
 ]
 # The codecs (slice 5): each must be among the modules imported below too.
 CODECS = ["models.entropy", "models.quant", "ops.dequant"]
+# The training path (slice 7): each must be among the modules imported
+# below too.
+TRAINING = ["parallel.axes", "parallel.ring_attention", "models.sharded",
+            "models.train_ckpt", "cli.train"]
 REPO = PORT_DIR.parent
 JAX_PACKAGE_IMPORT = re.compile(
     r"^\s*(from|import)\s+distributed_llm_dissemination_tpu(\.|\s|$)",
@@ -87,7 +94,7 @@ def test_every_port_module_imports_with_jax_blocked():
     imported = set(proc.stdout.split())
     assert len(imported) >= 15
     missing = {f"{port.__name__}.{m}"
-               for m in CONTROL_PLANE + CLI + CODECS} - imported
+               for m in CONTROL_PLANE + CLI + CODECS + TRAINING} - imported
     assert not missing, missing
 
 
@@ -114,6 +121,7 @@ def test_import_pattern_tells_the_two_package_names_apart():
 
 def _entry_points():
     cfg = tllama.CONFIGS["tiny"]
+    mesh = tsharded.make_train_mesh(1, cfg)
     blob = bytes(tserde.blob_nbytes(cfg, 0))
     layers = {0: tboot.LayerSrc(inmem_data=bytearray(blob),
                                 data_size=len(blob))}
@@ -141,7 +149,29 @@ def _entry_points():
             {2: {0: None}}),
         "ReceiverNode(stage_hbm)": lambda: _receiver(stage_hbm=True),
         "ReceiverNode(boot_cfg)": lambda: _receiver(boot_cfg=cfg),
+        "example_batch": lambda: tsharded.example_batch(cfg, mesh),
+        "train_state_from_numpy": lambda: tserde.train_state_from_numpy(
+            {}, {"m": {}, "v": {}, "step": 0}),
+        "restore_train_state": lambda: ttrain_ckpt.restore_train_state(
+            "/nonexistent", cfg, mesh),
+        "cli.train(-resume)": _cli_train,
     }
+
+
+def _cli_train():
+    """``cli.train -resume`` with no ``-device``: it resolves the card
+    before it reads a checkpoint."""
+    import json
+    import tempfile
+
+    from distributed_llm_dissemination_tpu_torch.cli.train import main
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "conf.json")
+        with open(path, "w") as f:
+            json.dump({"Model": "tiny"}, f)
+        return main(["-f", path, "-resume", "-ckpt",
+                     os.path.join(d, "ck")])
 
 
 def _cli_node(argv, model="tiny"):

@@ -15,8 +15,8 @@ Added for the port:
 - ``blob_nbytes_codec`` equals the JAX package's for every config,
   without a blob being made;
 - the plain K2/K3 (``ops.dequant`` on CPU tensors) equals the JAX
-  package's ``device_decode_jit`` run on the CPU, bit for bit, in bf16
-  and f32, on model blobs and on synthetic leaves that hit the kernels'
+  package's ``device_decode_jit`` run on the CPU, bit for bit, in bf16,
+  f16 and f32, on model blobs and on synthetic leaves that hit the kernels'
   traps (scale blocks at odd offsets, odd columns, 1-D leaves, columns
   that 128 does not divide);
 - a quantized mode-3 round of the port, staged on a CPU "device" so the
@@ -68,7 +68,8 @@ WIRE = ("int8", "int4", "int8e", "int4e")
 # int4 group per row), 1-D leaves, a 3-D leaf, and a leaf of 2 columns.
 TRAPS = (("a", (3, 5)), ("b", (7,)), ("c", (2, 3, 6)), ("d", (5, 130)),
          ("e", (4, 256)), ("f", (3, 7)), ("g", (1, 2)), ("h", (2, 34)))
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "float32": torch.float32}
 
 
 @pytest.fixture(autouse=True)
@@ -98,7 +99,7 @@ def _f32(t: torch.Tensor) -> np.ndarray:
 def _bits(a) -> np.ndarray:
     """Raw bits of a leaf: a torch tensor or a JAX/numpy array."""
     if isinstance(a, torch.Tensor):
-        a = a.view(torch.int16 if a.dtype == torch.bfloat16 else torch.int32)
+        a = a.view(torch.int16 if a.element_size() == 2 else torch.int32)
         return a.numpy().view(np.uint16 if a.dtype == torch.int16
                               else np.uint32)
     a = np.asarray(a)
@@ -418,9 +419,9 @@ def test_plain_dequant_equals_jax_device_decode_on_model_blobs(codec,
     jcfg = dataclasses.replace(JCFG, dtype=jnp.dtype(dtype_name))
     for bid in all_ids(tcfg):
         raw = _raw(bid)
-        if dtype == torch.float32:  # the same values, widened exactly
-            raw = _src(CFG, bid)
-            raw = b"".join(raw[name].float().numpy().tobytes()
+        if dtype != torch.bfloat16:  # the same values in f32 (exact) or
+            raw = _src(CFG, bid)     # rounded to f16
+            raw = b"".join(raw[name].to(dtype).numpy().tobytes()
                            for name, _ in serde.blob_specs(CFG, bid))
         enc = quant.encode_blob(tcfg, bid, raw, codec)
         assert enc == jquant.encode_blob(jcfg, bid, raw, codec)
