@@ -9,14 +9,19 @@ caught):
 
 1. env: the card, torch/CUDA versions, and the build of every kernel
    source under ``distributed_llm_dissemination_tpu_torch/csrc`` (the
-   three block-attention sources and the dequant source; one ``nvcc``
+   two block-attention sources and the dequant source; one ``nvcc``
    per source, all started together).
 2. kernel vs plain: each block-attention kernel (split-KV decode,
-   tensor-core prefill, scalar f32) against its plain PyTorch version and
+   tensor-core prefill) against its plain PyTorch version and
    an f64 oracle on every case shape it accepts, then the serving shapes
    of a ``--prompt`` and of a ``--long-prompt`` serve; then the f16
-   instances of the decode and prefill kernels on f16 cases and on the
-   ``--prompt`` serve's shapes in f16 (its own mix).  Device times of
+   and f32 instances of the decode and prefill kernels on cases of their
+   type (f32: the JAX offsets, ragged hd 32 and 64, nothing visible,
+   empty blocks, decode at t = 2048 and prefill at s = 2048 at full
+   width) and on the ``--prompt`` serve's shapes in that type (a mix
+   each).  The f32 prefill instance forms its products as 3xTF32 on the
+   tensor cores and keeps p in f32, so its pv carries no p-rounding
+   allowance.  Device times of
    the kernel, the plain version and one library call
    (``scaled_dot_product_attention``, a yardstick the port never calls)
    come from CUDA-graph replay of many calls, beside the least time the
@@ -106,7 +111,16 @@ caught):
    encode; seconds per GB), every blob byte-identical to the seeded
    blob, and phase 6's round of the ``hf:`` model with phase 6's checks,
    served ids equal to phase 3's, K1 launched and the plain attention
-   never.  ``hf_f16``: after the bf16 checkpoint is deleted, the same
+   never.  ``hf_f32``: the same checkpoint with its ``config.json`` as a
+   current ``transformers`` writes it (``"dtype": "bfloat16"``, no
+   ``torch_dtype``; shards hard-linked beside it), which both packages
+   read as float32: fabricated back through ``hf:`` (every blob equal to
+   the seeded leaves widened to f32, 7.69 GB), served in phase 6's round
+   through K1's f32 instances only (launch counts by instance, no plain
+   call), the booted params f32, the served ids equal to a plain-attention
+   greedy run on the card up to the first near-tie, then the f32 model's
+   warm decode ms per token at both prompt lengths.  ``hf_f16``: after
+   the bf16 checkpoint is deleted, the same
    weights rounded to float16 as an f16 checkpoint, fabricated back
    (every blob equal to the seeded leaves rounded to f16) and served in
    phase 6's round through K1's f16 instances only (launch counts by
@@ -142,10 +156,11 @@ caught):
    distributed_llm_dissemination_tpu_torch.cli.train -resume`` as a
    child process on the card, whose losses equal the library's.
 
-Then the ``{"kernels": [...]}`` line (K1's three kernels, its two f16
+Then the ``{"kernels": [...]}`` line (K1's two kernels, their f16 and f32
 instances, then K2 and K3 and their f16 output instances; ``launches`` is
-the main path's count -- phase 3 for K1, phase 9's f16 round for its f16
-instances, phase 8's ``ModelCodec`` round for K2 and K3 -- and
+the main path's count -- phase 3 for K1, phase 9's f16 and f32 rounds
+for its f16 and f32 instances, phase 8's ``ModelCodec`` round for K2 and
+K3 -- and
 ``launches_by_path`` shows every counted path, phase 10's ``train``
 among them; the prefill entry's ``train`` holds K1 at the training
 step's block),
@@ -170,14 +185,16 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12,
-              "float32": 67e12}  # dense, per dtype
+# Dense tensor-core rates per input type.  f32 inputs run as 3xTF32 (three
+# TF32 products per f32 product, the f32 prefill kernel's split): 495
+# TFLOP/s of TF32 over 3.  Without tensor cores f32 peaks at 67 TFLOP/s.
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 495e12 / 3}
+F32_SIMT_FLOPS = 67e12
 CSRC = "distributed_llm_dissemination_tpu_torch/csrc/"
 KERNEL_REPLACES = "distributed_llm_dissemination_tpu/ops/flash_attention.py:128"
 # Kernel name -> the CUDA kernels (profiler names) it launches.
 DEVICE_KERNELS = {"decode": ("decode_split_kernel", "decode_merge_kernel"),
-                  "prefill": ("prefill_wgmma_kernel",),
-                  "scalar": ("block_attention_kernel",)}
+                  "prefill": ("prefill_wgmma_kernel", "prefill_tf32x3_kernel")}
 PARTS = 8  # fragments per blob, as bench.py
 WRITERS = 4
 REPEATS = 5  # warm serving samples
@@ -530,23 +547,38 @@ def phase_kernel(fa, cfg, prompt, gen, long_prompt):
         (1, kvh, g, 2048, 2048, hd, 0, 0, f16),                 # prefill
         (1, 2, 2, 77, 300, 64, 250, 0, f16),                    # prefill hd 64
     ]
+    cases += [                                                  # f32 instances
+        (1, kvh, g, 1, 2048, hd, 2047, 0, f32),                 # decode
+        (1, 2, 4, 2, 300, 64, 250, 0, f32),                     # decode hd 64
+        (1, 2, 8, 1, 1000, 32, 999, 0, f32),                    # decode hd 32
+        (1, kvh, g, 1, 160, hd, 10, 100, f32),                  # nothing visible
+        (1, kvh, g, 1, 0, hd, 0, 0, f32),                       # empty block
+        (1, kvh, g, 2048, 2048, hd, 0, 0, f32),                 # prefill
+        (1, 2, 2, 64, 0, 64, 0, 0, f32),                        # empty block
+    ]
     by_kernel = {name: _new_tally() for name in fa.SOURCES}
+    seen, full_f32 = set(), {}
     for i, case in enumerate(cases):
         rec = attention_case(fa, *case, seed=i,
                              calls=4 if case[3] * case[4] > 1 << 20 else 10)
         emit("kernel_case", **rec)
-        if case[-1] != f16:  # the f16 instances have their own mix
+        seen.add(rec["kernel"])
+        if case[-1] == bf16:  # the f16 and f32 instances have their own mixes
             _add(by_kernel[rec["kernel"]], rec, 1)
-    for name, tally in by_kernel.items():
-        check(tally["n"] > 0, f"no phase-2 case for the {name} kernel")
+        if case[-1] == f32 and case[:3] == (1, kvh, g) and case[4] == 2048:
+            full_f32[rec["kernel"]] = rec
+    check(seen == set(fa.SOURCES), f"phase-2 cases reach {seen}")
     mixes = {f"prompt{p}": serving_mix(fa, cfg, p, gen, seed0)
              for p, seed0 in ((prompt, 100), (long_prompt, 200))}
-    # The same serve of an f16 model: K1's f16 instances (phase 9's f16
-    # round launches them).
+    # The same serve of an f16 and of an f32 model: K1's f16 and f32
+    # instances (phase 9's f16 and f32 rounds launch them).
     mixes[f"prompt{prompt}_f16"] = serving_mix(fa, cfg, prompt, gen, 300,
                                                dtype=f16)
+    mixes[f"prompt{prompt}_f32"] = serving_mix(fa, cfg, prompt, gen, 400,
+                                               dtype=f32)
     emit("kernel_mixes", gen=gen, timing=TIMING, mixes=mixes)
-    return {name: _per_launch(tl) for name, tl in by_kernel.items()}, mixes
+    return ({name: _per_launch(tl) for name, tl in by_kernel.items()}, mixes,
+            full_f32)
 
 
 def fabricate(cfg, serde, seed):
@@ -1952,10 +1984,14 @@ def _round_record(out, sent=None):
 def phase_hf(cfg, args, fa, fab, prompt):
     """Phase 9 (a): ``cfg``'s seeded weights as an HF checkpoint on disk,
     fabricated back through ``hf:`` and delivered, booted and served in
-    phase 6's round.  Returns the round's attention launches by kernel."""
+    phase 6's round; then ``hf_f32`` on the same checkpoint.  Returns the
+    bf16 round's attention launches by kernel and the f32 round's by
+    kernel instance."""
     import os
     import shutil
     import tempfile
+
+    import torch
 
     from distributed_llm_dissemination_tpu_torch.core import config as ccfg
     from distributed_llm_dissemination_tpu_torch.core.types import SourceType
@@ -1997,26 +2033,133 @@ def phase_hf(cfg, args, fa, fab, prompt):
                            f"{same} of {ids}")
         del made
         out = mode3_round(hcfg, args, fa, prompt, hblobs)
+        sent = _check_raw_round(hcfg, out, hblobs, fab["tokens"])
+        want = _expected_round_launches(fa, hcfg, args,
+                                        out["warm"][0][0]["launches"])
+        check(out["attention"] == want,
+              f"round attention launches {out['attention']} != {want}")
+        check(sum(out["attention"].values()) > 0,
+              "no K1 launch in the hf round")
+        check(out["attention_plain"] == 0,
+              f"{out['attention_plain']} plain attention calls in the hf round")
+        emit("hf", config=f"hf:<tmp>/{os.path.basename(path)}",
+             written_from=cfg.name, checkpoint_bytes=written, shards=HF_SHARDS,
+             disk_free_bytes=free, write_s=write_s,
+             blobs_byte_identical=f"{len(same)}/{len(ids)}",
+             fabricate_s=fab_s, blob_s_per_gb=fab_s / (total / 1e9),
+             served_ids_equal_direct_generate=True,
+             phase_wall_s=time.monotonic() - t_phase,
+             **_round_record(out, sent))
+        launches = dict(out["attention"])
+        del out, hblobs
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32_launches = phase_hf_f32(cfg, args, fa, fab, prompt, path)
     finally:
         shutil.rmtree(path, ignore_errors=True)
-    sent = _check_raw_round(hcfg, out, hblobs, fab["tokens"])
-    want = _expected_round_launches(fa, hcfg, args, out["warm"][0][0]["launches"])
+    return launches, f32_launches
+
+
+def phase_hf_f32(cfg, args, fa, fab, prompt, path):
+    """Phase 9 (a, float32): the bf16 checkpoint at ``path`` with its
+    ``config.json`` as a current ``transformers`` writes it (``"dtype"``,
+    no ``torch_dtype``), which both packages read as float32.  Its shards
+    are hard-linked beside the new config (no new disk bytes); the
+    seeder's fabrication through ``hf:`` widens every leaf to f32, and
+    phase 6's round serves the model through K1's f32 instances.  Returns
+    the round's attention launches by kernel instance."""
+    import os
+
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.core import config as ccfg
+    from distributed_llm_dissemination_tpu_torch.core.types import SourceType
+    from distributed_llm_dissemination_tpu_torch.models import hf, serde
+
+    t_phase = time.monotonic()
+    blobs = fab["blobs"]
+    ids = sorted(blobs)
+    f32_path = os.path.join(path, "f32")
+    os.mkdir(f32_path)
+    for name in os.listdir(path):
+        if name.endswith(".safetensors"):
+            os.link(os.path.join(path, name), os.path.join(f32_path, name))
+    with open(os.path.join(path, "config.json")) as f:
+        conf = json.load(f)
+    conf["dtype"] = conf.pop("torch_dtype")
+    with open(os.path.join(f32_path, "config.json"), "w") as f:
+        json.dump(conf, f)
+    name = hf.PREFIX + f32_path
+    hcfg = hf.config_from_name(name)
+    check(hcfg.dtype == torch.float32, f"hf dtype {hcfg.dtype} for a config "
+          f"with dtype {conf['dtype']!r} and no torch_dtype")
+    nc = ccfg.NodeConf(id=1, addr="1",
+                       initial_layers={SourceType.MEM: {b: 0 for b in ids}},
+                       sources={SourceType.MEM: 0})
+    t0 = time.monotonic()
+    made = ccfg.create_layers(nc, save_disk=False, model=name)
+    fab_s = time.monotonic() - t0
+    hblobs = {lid: made[lid].inmem_data for lid in ids}
+    del made
+    total = 0
+    for lid in ids:  # each blob: the seeded leaves widened to f32, exactly
+        specs = serde.blob_specs(cfg, lid)
+        leaves = serde._split_blob(cfg, blobs[lid], specs)
+        want = b"".join(leaves[n].to(torch.float32).numpy().tobytes()
+                        for n, _ in specs)
+        check(hblobs[lid] == want,
+              f"f32 hf blob {lid} != the seeded blob widened to f32")
+        total += len(want)
+        del leaves, want
+    out = mode3_round(hcfg, args, fa, prompt, hblobs)
+    sent = _check_raw_round(hcfg, out, hblobs, None)
+    want = _expected_round_launches(fa, hcfg, args,
+                                    out["warm"][0][0]["launches"])
     check(out["attention"] == want,
-          f"round attention launches {out['attention']} != {want}")
-    check(sum(out["attention"].values()) > 0, "no K1 launch in the hf round")
+          f"f32 round attention launches {out['attention']} != {want}")
+    by_inst = out["attention_by_instance"]
+    check(all(by_inst[f"{name}:float32"] == want[name] > 0
+              for name in ("decode", "prefill"))
+          and sum(by_inst.values()) == sum(want.values()),
+          f"f32 round launches by instance {by_inst} (want {want})")
     check(out["attention_plain"] == 0,
-          f"{out['attention_plain']} plain attention calls in the hf round")
-    emit("hf", config=f"hf:<tmp>/{os.path.basename(path)}",
-         written_from=cfg.name, checkpoint_bytes=written, shards=HF_SHARDS,
-         disk_free_bytes=free, write_s=write_s,
-         blobs_byte_identical=f"{len(same)}/{len(ids)}",
-         fabricate_s=fab_s, blob_s_per_gb=fab_s / (total / 1e9),
-         served_ids_equal_direct_generate=True,
-         phase_wall_s=time.monotonic() - t_phase,
-         **_round_record(out, sent))
-    launches = dict(out["attention"])
+          f"{out['attention_plain']} plain attention calls in the f32 round")
+    params = out["res"].params
+    check(all(t.dtype == torch.float32 for t in params["layers"].values()),
+          "the f32 model booted in another dtype")
+    served = out["served"][0]
+    parity = near_tie_ids(fa, params, prompt, hcfg, served)
+    record = _round_record(out, sent)
     del out, hblobs
     gc.collect()
+    # Warm decode of the f32 model at both prompt lengths (phase 3's
+    # prompts), outside the counted round.
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    long_prompt = torch.randint(0, cfg.vocab, (1, args.long_prompt),
+                                generator=gen, device="cuda")
+    serve = {}
+    for label, p, n in (("prompt", prompt, REPEATS),
+                        ("long_prompt", long_prompt, LONG_REPEATS)):
+        prefill, per_token = warm_serve(hcfg, params, p, args.gen, n)
+        serve[label] = dict(
+            prompt=p.shape[1], warm_samples=n,
+            warm_prefill_ms_median=statistics.median(prefill),
+            warm_decode_ms_per_token_median=statistics.median(per_token),
+            warm_decode_ms_per_token_min_max=[per_token[0], per_token[-1]])
+    emit("hf_f32", config=f"hf:<tmp>/{os.path.basename(path)}/f32",
+         written_from=cfg.name, dtype="float32",
+         config_dtype_key=conf["dtype"], torch_dtype_named=False,
+         blob_bytes=total,
+         blobs_equal_seeded_widened_to_f32=f"{len(ids)}/{len(ids)}",
+         fabricate_s=fab_s, blob_s_per_gb=fab_s / (total / 1e9),
+         served_ids=served,
+         plain_attention_parity=parity,
+         attention_launches_by_instance=by_inst, warm_serve=serve,
+         phase_wall_s=time.monotonic() - t_phase, **record)
+    launches = dict(by_inst)
+    del params, long_prompt
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2523,8 +2666,7 @@ def phase_train(cfg, args, fa, fab):
     by_inst = dict(fa.launches_by_instance)
     plain = fa.plain_calls
     peak = torch.cuda.max_memory_allocated()
-    check(launches == {"decode": 0, "prefill": TRAIN_STEPS * 2 * L,
-                       "scalar": 0}
+    check(launches == {"decode": 0, "prefill": TRAIN_STEPS * 2 * L}
           and by_inst["prefill:bfloat16"] == TRAIN_STEPS * 2 * L,
           f"train path K1 launches {by_inst}")
     check(plain == 0, f"{plain} plain attention calls on the train path")
@@ -2701,17 +2843,21 @@ def codec_f16_entry(dq, kind, st):
     }
 
 
-def kernel_f16_entry(fa, name, f16_launches, mix):
-    """The kernels entry of one of K1's f16 instances: the f16 serving
-    mix's per-launch numbers; launches from phase 9's f16 round."""
+def kernel_dtype_entry(fa, name, dtype, launches, mix, full=None):
+    """The kernels entry of one of K1's f16 or f32 instances: that type's
+    serving mix's per-launch numbers; launches from phase 9's round of a
+    model of that type (``hf_f16``, ``hf_f32``).  ``full``: the phase-2
+    full-width case of the instance, beside them (f32, with the ceiling
+    of a kernel without tensor cores)."""
     head = mix[name]
-    return {
-        "name": f"block_attention_{name}_f16",
+    short = {"float16": "f16", "float32": "f32"}[dtype]
+    entry = {
+        "name": f"block_attention_{name}_{short}",
         "route": "cuda",
         "source": CSRC + fa.SOURCES[name],
         "replaces": KERNEL_REPLACES,
-        "launches": f16_launches[f"{name}:float16"],
-        "launches_by_path": {"hf_f16": f16_launches[f"{name}:float16"]},
+        "launches": launches[f"{name}:{dtype}"],
+        "launches_by_path": {f"hf_{short}": launches[f"{name}:{dtype}"]},
         "max_abs_err": head["max_abs_err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -2719,10 +2865,18 @@ def kernel_f16_entry(fa, name, f16_launches, mix):
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "device_kernels": list(DEVICE_KERNELS[name]),
-        "numbers_from": "f16 serving mix of the main prompt; launches from "
-                        "phase 9's f16 round",
+        "numbers_from": f"{short} serving mix of the main prompt; launches "
+                        f"from phase 9's {short} round",
         "timing": TIMING,
     }
+    if full is not None:
+        entry["full_width"] = dict(
+            {k: full[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                  "bound_ms", "bound_by", "flops",
+                                  "max_abs_err_vs_plain")},
+            simt_bound_ms=max(full["flops"] / F32_SIMT_FLOPS,
+                              full["bytes"] / HBM_BYTES_PER_S) * 1e3)
+    return entry
 
 
 def kernel_entry(fa, name, paths, case_stats, mixes, main_mix):
@@ -2775,8 +2929,8 @@ def main() -> int:
     t_script = time.monotonic()
     cfg = CONFIGS[args.config]
     card = phase_env(cuda_build, fa, dq)
-    case_stats, mixes = phase_kernel(fa, cfg, args.prompt, args.gen,
-                                     args.long_prompt)
+    case_stats, mixes, full_f32 = phase_kernel(fa, cfg, args.prompt, args.gen,
+                                               args.long_prompt)
     res, prompt, launches, fab = phase_main(cfg, args, fa)
     long_prompt = phase_long_serve(cfg, args, res)
     phase_parity(cfg, res, prompt, fa)
@@ -2788,7 +2942,7 @@ def main() -> int:
     phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=True)
     phase_cli(cfg, args, fa, fab, prompt)
     codec_stats = phase_codec(cfg, args, fa, fab, prompt, raw_ttd_s)
-    hf_launches = phase_hf(cfg, args, fa, fab, prompt)
+    hf_launches, f32_launches = phase_hf(cfg, args, fa, fab, prompt)
     f16_launches = phase_hf_f16(cfg, args, fa, fab, prompt)
     mixes[f"{MOE_CONFIG} prompt{args.prompt}"], moe_launches, moe_k2 = (
         phase_moe(args, fa, prompt))
@@ -2809,8 +2963,11 @@ def main() -> int:
         **{k: train_block[k] for k in ("ms", "plain_ms", "library_ms",
                                        "bound_ms", "bound_by")},
         "max_abs_err_vs_plain": train_block["max_abs_err_vs_plain"]}
-    entries += [kernel_f16_entry(fa, name, f16_launches,
-                                 mixes[f"{main_mix}_f16"])
+    entries += [kernel_dtype_entry(fa, name, "float16", f16_launches,
+                                   mixes[f"{main_mix}_f16"])
+                for name in ("decode", "prefill")]
+    entries += [kernel_dtype_entry(fa, name, "float32", f32_launches,
+                                   mixes[f"{main_mix}_f32"], full_f32[name])
                 for name in ("decode", "prefill")]
     entries += [codec_kernel_entry(dq, kind, st)
                 for kind, st in codec_stats.items()]

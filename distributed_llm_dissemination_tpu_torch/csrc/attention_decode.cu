@@ -1,4 +1,5 @@
-// Split-KV decode attention for Hopper (sm_90a), bf16 or f16 in, f32 out.
+// Split-KV decode attention for Hopper (sm_90a), bf16, f16 or f32 in, f32
+// out.
 //
 // Replaces, for the few-query-row shapes of a decode step, the Pallas TPU
 // kernel `_attn_kernel` (distributed_llm_dissemination_tpu/ops/
@@ -14,17 +15,19 @@
 // does 4*hd operations per (query row, key); at g*sq = 4 rows that is
 // about 4 operations per byte, far below the ~295 the tensor cores need,
 // so the call is byte-bound (t = 2048, 8 KV heads, hd 128: 8 MiB of K/V,
-// ~2.5 us at 3.35 TB/s).  So this kernel runs on the CUDA cores and what
-// it gets right is bytes and occupancy:
+// ~2.5 us at 3.35 TB/s; f32 inputs twice that, 16.8 MB, ~5.0 us).  So this
+// kernel runs on the CUDA cores and what it gets right is bytes and
+// occupancy:
 //  - Split KV.  The grid is (b*kvh, n_split): the host splits the visible
 //    keys [0, n_vis) into chunks so that about two CTAs sit on each SM,
 //    and every CTA reads its chunk of K and V exactly once.  All g*sq
 //    query rows of the KV head share that read; their q sits in
 //    registers.
-//  - 16-byte loads.  HD/8 lanes cover one key row (8 bf16 each), so a
-//    warp reads 32/(HD/8) consecutive rows as one contiguous run; each
-//    thread keeps U rows of K and V in flight in registers before it
-//    uses the first.
+//  - 16-byte loads.  HD/E lanes cover one key row, E = 16 / sizeof(T)
+//    elements each (8 bf16 or f16, 4 f32), so a warp reads 32/(HD/E)
+//    consecutive rows as one contiguous run (f32 at hd 128: one row per
+//    warp); each thread keeps U rows of K and V in flight in registers
+//    before it uses the first.
 //  - Partials.  Each lane group keeps its own online-softmax state over
 //    the keys it reads; the CTA merges its groups through shared memory
 //    and writes one (pv, m, l) partial per split.  A second small kernel
@@ -32,9 +35,10 @@
 //    split the first kernel writes the outputs directly and the merge is
 //    not launched.  A split, or a whole call, that sees no key never
 //    reads K/V and yields (0, -1e30, 0).
-//  - Numerics: scores and p stay f32 (exp2 of log2e-scaled scores), for
-//    bf16 and f16 inputs alike; the element type is a template parameter
-//    (`dtype` 0 = bf16, 1 = f16 at the C interface).
+//  - Numerics: scores and p stay f32 (exp2 of log2e-scaled scores) and
+//    every product is an f32 FMA, for every input type; the element type
+//    is a template parameter (`dtype` 0 = bf16, 1 = f16, 2 = f32 at the C
+//    interface).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -48,12 +52,25 @@ constexpr int NWARPS = NTHREADS / 32;
 constexpr float NEG_INF = -1e30f;  // finite, as the TPU kernel's _NEG_INF
 constexpr float LN2 = 0.6931471805599453f;
 
-// 8 elements of type T (16 bytes) to f32.
+// Elements of type T in one 16-byte load: 8 bf16 or f16, 4 f32.
 template <typename T>
-__device__ __forceinline__ void unpack8(const uint4& raw, float (&out)[8]);
+constexpr int EPL = 16 / (int)sizeof(T);
+
+// One 16-byte load of T elements to f32.
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& raw,
+                                       float (&out)[EPL<T>]);
 template <>
-__device__ __forceinline__ void unpack8<__nv_bfloat16>(const uint4& raw,
-                                                       float (&out)[8]) {
+__device__ __forceinline__ void unpack<float>(const uint4& raw,
+                                              float (&out)[4]) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+template <>
+__device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4& raw,
+                                                      float (&out)[8]) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -63,8 +80,8 @@ __device__ __forceinline__ void unpack8<__nv_bfloat16>(const uint4& raw,
   }
 }
 template <>
-__device__ __forceinline__ void unpack8<__half>(const uint4& raw,
-                                                float (&out)[8]) {
+__device__ __forceinline__ void unpack<__half>(const uint4& raw,
+                                               float (&out)[8]) {
   const __half2* h = reinterpret_cast<const __half2*>(&raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -84,8 +101,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ part_l, int rows, int sq, int t,
                     int n_vis, int chunk, long long q_off, long long k_off,
                     float scale_log2) {
-  static_assert(sizeof(T) == 2, "8 elements per 16-byte load");
-  constexpr int LPK = HD / 8;             // lanes per key row
+  constexpr int E = EPL<T>;                // elements per 16-byte load
+  constexpr int LPK = HD / E;             // lanes per key row
+  static_assert(LPK <= 32 && 32 % LPK == 0, "a key row within one warp");
   constexpr int KPW = 32 / LPK;           // key rows per warp per step
   constexpr int GROUPS = NWARPS * KPW;    // independent key streams
   constexpr int U = NR <= 4 ? 4 : 2;      // key rows in flight per thread
@@ -96,39 +114,39 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long bh = blockIdx.x;
   const int split = blockIdx.y, n_split = gridDim.y;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane % LPK;                 // this lane's 8 dims
+  const int sub = lane % LPK;                 // this lane's E dims
   const int grp = warp * KPW + lane / LPK;    // this lane's key stream
   const int c0 = split * chunk;
   const int c1 = min(c0 + chunk, n_vis);
 
-  float qr[NR][8];
+  float qr[NR][E];
   long long qpos[NR];
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     if (r < rows) {
       const uint4 raw = *reinterpret_cast<const uint4*>(
-          q + (bh * rows + r) * HD + sub * 8);
-      unpack8<T>(raw, qr[r]);
+          q + (bh * rows + r) * HD + sub * E);
+      unpack<T>(raw, qr[r]);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) qr[r][i] *= scale_log2;
+      for (int i = 0; i < E; ++i) qr[r][i] *= scale_log2;
     } else {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) qr[r][i] = 0.f;
+      for (int i = 0; i < E; ++i) qr[r][i] = 0.f;
     }
     qpos[r] = q_off + (r < rows ? r % sq : 0);
   }
 
-  float m[NR], l[NR], acc[NR][8];  // m in log2 units
+  float m[NR], l[NR], acc[NR][E];  // m in log2 units
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     m[r] = NEG_INF;
     l[r] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[r][i] = 0.f;
+    for (int i = 0; i < E; ++i) acc[r][i] = 0.f;
   }
 
-  const T* kb = k + bh * (long long)t * HD + sub * 8;
-  const T* vb = v + bh * (long long)t * HD + sub * 8;
+  const T* kb = k + bh * (long long)t * HD + sub * E;
+  const T* vb = v + bh * (long long)t * HD + sub * E;
   // Uniform trip count across the CTA: shuffles need every lane.
   const int span = max(c1 - c0, 0);
   const int n_iter = (span + GROUPS * U - 1) / (GROUPS * U);
@@ -149,13 +167,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float s[U][NR];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[8];
-      unpack8<T>(kraw[u], kf);
+      float kf[E];
+      unpack<T>(kraw[u], kf);
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
         float d = 0.f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) d = fmaf(qr[r][i], kf[i], d);
+        for (int i = 0; i < E; ++i) d = fmaf(qr[r][i], kf[i], d);
 #pragma unroll
         for (int off = LPK / 2; off > 0; off >>= 1)
           d += __shfl_xor_sync(0xffffffffu, d, off);
@@ -182,13 +200,13 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[r] = l[r] * alpha + psum;
       m[r] = m_new;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) acc[r][i] *= alpha;
+      for (int i = 0; i < E; ++i) acc[r][i] *= alpha;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float vf[8];
-        unpack8<T>(vraw[u], vf);
+        float vf[E];
+        unpack<T>(vraw[u], vf);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[r][i] = fmaf(p[u], vf[i], acc[r][i]);
+        for (int i = 0; i < E; ++i) acc[r][i] = fmaf(p[u], vf[i], acc[r][i]);
       }
     }
   }
@@ -201,7 +219,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       sm_l[grp][r] = l[r];
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) sm_acc[grp][r][sub * 8 + i] = acc[r][i];
+    for (int i = 0; i < E; ++i) sm_acc[grp][r][sub * E + i] = acc[r][i];
   }
   __syncthreads();
   const long long out_row0 = (bh * n_split + split) * rows;
@@ -349,7 +367,7 @@ cudaError_t dispatch_hd(const Args& a, int hd) {
 // chunks of `chunk` keys.  With n_split > 1, ppv/pm/pl are f32 scratch of
 // [bh, n_split, rows, hd] / [bh, n_split, rows]; with n_split == 1 they
 // must be pv/m/l themselves.  dtype: the element type of q/k/v, 0 = bf16,
-// 1 = f16.  Returns the CUDA error of the launches (0 on success); the
+// 1 = f16, 2 = f32.  Returns the CUDA error of the launches (0 on success); the
 // Python wrapper raises on anything else.
 extern "C" int attention_decode_fwd(const void* q, const void* k,
                                     const void* v, void* pv, void* m,
@@ -372,6 +390,7 @@ extern "C" int attention_decode_fwd(const void* q, const void* k,
   switch (dtype) {
     case 0: return (int)dispatch_hd<__nv_bfloat16>(a, hd);
     case 1: return (int)dispatch_hd<__half>(a, hd);
+    case 2: return (int)dispatch_hd<float>(a, hd);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -7,26 +7,29 @@ where ``m``/``l`` are the row max and normaliser and ``pv`` the
 unnormalised value sum, all f32.  ``pv / l`` is the attention output;
 ``merge_partials`` combines blocks (ring attention).
 
-One function, a plain version and three Hopper kernels:
+One function, a plain version and two Hopper kernels:
 
 - ``block_attention_ref``: plain PyTorch (einsum + where), the twin of
   the JAX package's ``_block_attention_ref``.  It materialises the
   [sq, t] logits.
-- ``csrc/attention_decode.cu``: split-KV decode for bf16 and f16 calls
-  with at most ``DECODE_MAX_ROWS`` query rows per KV head (``g * sq``).
-  The visible keys are cut into chunks (``split_plan``) so the card's SMs
-  all work; a second small kernel merges the chunks' partials.
-- ``csrc/attention_prefill.cu``: tensor-core prefill (``wgmma`` fed by
-  TMA) for every other bf16 or f16 call.  It rounds p to the input type
-  for the PV product (as the JAX model's ``gqa_attention`` rounds its
-  probabilities to the model's dtype), which bounds its pv error against
-  the plain version by ``P_REL[dtype] * l * max|v|`` per row, plus, for
-  f16, ``F16_P_ABS * max|v|`` per visible key (``p_round_bound``).
-- ``csrc/block_attention.cu``: the scalar f32 kernel, for f32 inputs.
+- ``csrc/attention_decode.cu``: split-KV decode for calls with at most
+  ``DECODE_MAX_ROWS`` query rows per KV head (``g * sq``).  The visible
+  keys are cut into chunks (``split_plan``) so the card's SMs all work; a
+  second small kernel merges the chunks' partials.  p and every product
+  stay f32.
+- ``csrc/attention_prefill.cu``: tensor-core prefill fed by TMA for every
+  other call.  Its bf16 and f16 instances (``wgmma``) round p to the
+  input type for the PV product (as the JAX model's ``gqa_attention``
+  rounds its probabilities to the model's dtype), which bounds their pv
+  error against the plain version by ``P_REL[dtype] * l * max|v|`` per
+  row, plus, for f16, ``F16_P_ABS * max|v|`` per visible key
+  (``p_round_bound``).  Its f32 instance forms both products as 3xTF32
+  (each f32 operand split into two TF32 parts, three TF32 products) and
+  keeps p in f32: ``P_REL`` is 0 there.
 
-``kernel_for(sq, g, dtype)`` picks among them; the choice depends on
-nothing else.  The decode and prefill sources hold a bf16 and an f16
-instance each (one template parameter; ``DTYPE_IDS``).  Each source is
+``kernel_for(sq, g, dtype)`` picks between them; the choice depends on
+nothing else.  Each source holds a bf16, an f16 and an f32 instance (the
+element type is a template parameter; ``DTYPE_IDS``).  Each source is
 built with ``nvcc`` on first use and called through ``ctypes``
 (``ops/cuda_build.py``); its source note gives its bounds and design.
 
@@ -55,8 +58,7 @@ from . import cuda_build
 
 NEG_INF = -1e30  # finite: -inf would make (m - m_new) NaN on empty rows
 SOURCES = {"decode": "attention_decode.cu",
-           "prefill": "attention_prefill.cu",
-           "scalar": "block_attention.cu"}
+           "prefill": "attention_prefill.cu"}
 HEAD_DIMS = (32, 64, 128)  # every kernel's template instances
 DECODE_MAX_ROWS = 8  # g * sq at or below this takes the decode kernel
 SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -64,12 +66,13 @@ DECODE_CTAS_PER_SM = 2  # split target: about two decode CTAs per SM
 DECODE_CHUNK_ALIGN = 32  # split chunks are whole multiples of this
 # The prefill kernel's rounding of p to the input type: |p_r - p| <=
 # P_REL * p, and for f16 below its normal range (p < 2**-14) at most half
-# its subnormal step, F16_P_ABS.
+# its subnormal step, F16_P_ABS.  The f32 instance does not round p.
 BF16_P_REL = 2.0 ** -9
-P_REL = {torch.bfloat16: BF16_P_REL, torch.float16: 2.0 ** -11}
+P_REL = {torch.bfloat16: BF16_P_REL, torch.float16: 2.0 ** -11,
+         torch.float32: 0.0}
 F16_P_ABS = 2.0 ** -25
-# The element type id of the two-byte kernels' C interface (``dtype``).
-DTYPE_IDS = {torch.bfloat16: 0, torch.float16: 1}
+# The element type id of the kernels' C interface (``dtype``).
+DTYPE_IDS = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 INPUT_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 LOG2E = 1.4426950408889634
 
@@ -80,23 +83,21 @@ launches = 0
 launches_by_kernel = {name: 0 for name in SOURCES}
 launches_by_instance = {
     f"{name}:{str(dt).split('.')[-1]}": 0 for name in SOURCES
-    for dt in ((torch.float32,) if name == "scalar" else DTYPE_IDS)}
+    for dt in DTYPE_IDS}
 plain_calls = 0
 
 _fns = {}
 _lib_lock = threading.Lock()
-_ONE_PASS_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                  + [ctypes.c_longlong] * 2 + [ctypes.c_float, ctypes.c_void_p])
 _ARGTYPES = {
     "decode": ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                + [ctypes.c_longlong] * 2
                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
-    "prefill": (_ONE_PASS_ARGS[:-1] + [ctypes.c_int, ctypes.c_void_p]),
-    "scalar": _ONE_PASS_ARGS,
+    "prefill": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                + [ctypes.c_longlong] * 2
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
 }
 _SYMBOLS = {"decode": "attention_decode_fwd",
-            "prefill": "attention_prefill_fwd",
-            "scalar": "block_attention_fwd"}
+            "prefill": "attention_prefill_fwd"}
 
 
 def reset_counts() -> None:
@@ -110,11 +111,9 @@ def reset_counts() -> None:
 
 
 def kernel_for(sq: int, g: int, dtype: torch.dtype) -> str:
-    """Which kernel serves a CUDA call: ``"scalar"`` for f32 inputs,
-    ``"decode"`` for bf16 or f16 with ``g * sq <= DECODE_MAX_ROWS``, else
-    ``"prefill"``."""
-    if dtype == torch.float32:
-        return "scalar"
+    """Which kernel serves a CUDA call: ``"decode"`` with ``g * sq <=
+    DECODE_MAX_ROWS``, else ``"prefill"``; every input type alike (each
+    kernel has an instance per type)."""
     return "decode" if g * sq <= DECODE_MAX_ROWS else "prefill"
 
 
@@ -243,12 +242,9 @@ def block_attention(qg, k, v, q_off: int, k_off: int):
         err = fn(*ptrs, *part, bh, rows, sq, t, hd, n_vis, n_split, chunk,
                  int(q_off), int(k_off), LOG2E / math.sqrt(hd),
                  DTYPE_IDS[qg.dtype], stream)
-    elif name == "prefill":
-        err = fn(*ptrs, bh, rows, sq, t, hd, int(q_off), int(k_off),
-                 LOG2E / math.sqrt(hd), DTYPE_IDS[qg.dtype], stream)
     else:
         err = fn(*ptrs, bh, rows, sq, t, hd, int(q_off), int(k_off),
-                 math.sqrt(hd), stream)
+                 LOG2E / math.sqrt(hd), DTYPE_IDS[qg.dtype], stream)
     if err != 0:
         raise RuntimeError(f"block_attention {name} kernel launch failed: "
                            f"CUDA error {err}")

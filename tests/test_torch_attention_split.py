@@ -174,10 +174,10 @@ def _serving_shapes(cfg, prompt, gen):
 def test_dispatch_of_the_main_path(prompt):
     cfg = CONFIGS["llama3-8b-d4"]
     g = cfg.n_heads // cfg.n_kv_heads
-    counts = {"decode": 0, "prefill": 0, "scalar": 0}
+    counts = {"decode": 0, "prefill": 0}
     for n, sq, _, _ in _serving_shapes(cfg, prompt, 32):
         counts[tfa.kernel_for(sq, g, torch.bfloat16)] += n
-    assert counts == {"decode": 124, "prefill": 8, "scalar": 0}
+    assert counts == {"decode": 124, "prefill": 8}
 
 
 @pytest.mark.parametrize("sq,g,dtype,want", [
@@ -187,8 +187,8 @@ def test_dispatch_of_the_main_path(prompt):
     (3, 4, torch.bfloat16, "prefill"),
     (1, 16, torch.bfloat16, "prefill"),
     (128, 4, torch.bfloat16, "prefill"),
-    (1, 4, torch.float32, "scalar"),
-    (256, 2, torch.float32, "scalar"),
+    (1, 4, torch.float32, "decode"),
+    (256, 2, torch.float32, "prefill"),
 ])
 def test_dispatch_by_rows_and_dtype(sq, g, dtype, want):
     assert tfa.kernel_for(sq, g, dtype) == want

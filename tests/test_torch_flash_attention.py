@@ -131,7 +131,7 @@ def test_kernel_for_routes_f16_as_bf16():
             tfa.kernel_for(sq, g, torch.bfloat16)
     assert tfa.kernel_for(1, 4, torch.float16) == "decode"
     assert tfa.kernel_for(2048, 4, torch.float16) == "prefill"
-    assert tfa.kernel_for(2048, 4, torch.float32) == "scalar"
+    assert tfa.kernel_for(2048, 4, torch.float32) == "prefill"
 
 
 def test_p_round_bound_covers_f16_rounding_of_p():
@@ -234,7 +234,7 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
-    # scalar kernel (f32)
+    # the f32 prefill instance (3xTF32)
     (1, 2, 2, 256, 256, 128, 128, 0, torch.float32),
     (1, 2, 2, 100, 2049, 32, 2000, 0, torch.float32),
     # split-KV decode kernel (bf16, g * sq <= 8)

@@ -18,8 +18,10 @@ Added for the port:
 - under ``ModelCodec`` int8 the seeder's wire blobs and the booted
   weights equal the JAX package's, bit for bit;
 - the port's blobs equal the JAX package's byte for byte for every blob
-  of f32, bf16 and f16 checkpoints, untied and tied, and of an f32-stored
-  checkpoint whose config names bf16 (a conversion on read);
+  of f32, bf16 and f16 checkpoints, untied and tied, of an f32-stored
+  checkpoint whose config names bf16 (a conversion on read), and of a
+  bf16 checkpoint whose config names ``"dtype"`` and no ``torch_dtype``
+  (read as f32 by both), which also boots in f32 like the JAX package;
 - every rejection raises the JAX package's error type and message;
 - ``models/hf.py`` imports and reads with ``jax``, ``safetensors``,
   ``transformers`` and ``ml_dtypes`` blocked;
@@ -387,16 +389,30 @@ def test_reader_is_lazy_and_refuses_other_dtypes(tmp_path):
 
 
 def _blob_cases():
+    """(stored, named, tied).  ``named`` None: the config names no
+    ``torch_dtype`` but ``"dtype": "bfloat16"``, as ``transformers`` 4.56
+    and later write it; both packages read only ``torch_dtype`` and serve
+    such a checkpoint in f32."""
     cases = [(s, s, tied) for s in sorted(DTYPES) for tied in (False, True)]
-    return cases + [("float32", "bfloat16", False)]
+    return cases + [("float32", "bfloat16", False), ("bfloat16", None, False)]
+
+
+def _write_current_config_checkpoint(path, stored="bfloat16"):
+    """A checkpoint whose config.json has ``"dtype"`` and no
+    ``torch_dtype``."""
+    return _write_checkpoint(path, stored, None, dtype="bfloat16")
 
 
 @pytest.mark.parametrize("stored,named,tied", _blob_cases())
 def test_blobs_equal_jax_byte_for_byte(tmp_path, stored, named, tied):
-    path = _write_checkpoint(str(tmp_path / "ck"), stored, named, tied=tied)
+    if named is None:
+        path = _write_current_config_checkpoint(str(tmp_path / "ck"), stored)
+    else:
+        path = _write_checkpoint(str(tmp_path / "ck"), stored, named,
+                                 tied=tied)
     cfg, jcfg = hf.config_from_dir(path), jhf.config_from_dir(path)
-    assert cfg.dtype == DTYPES[named]
-    assert np.dtype(jcfg.dtype).name == named
+    assert cfg.dtype == DTYPES[named or "float32"]
+    assert np.dtype(jcfg.dtype).name == (named or "float32")
     name = "hf:" + path
     for b in range(serde.head_blob_id(cfg) + 1):
         got = hf.blob_from_name(name, b)
@@ -511,6 +527,46 @@ def test_float16_fabricates_like_jax_and_boots(tmp_path):
     assert res.params["embed"].dtype == torch.float16
     jparams = jhf.params_from_dir(path)
     tokens = np.random.default_rng(5).integers(0, cfg.vocab, (2, 16))
+    got = forward(res.params, torch.from_numpy(tokens), cfg).numpy()
+    want = np.asarray(jllama.forward(jparams, jnp.asarray(tokens), jcfg))
+    err = np.abs(got - want)
+    assert err.max() < 0.1 and err.mean() < 0.02, (err.max(), err.mean())
+    prompt = tokens[:1, :6]
+    ids = generate(res.params, torch.from_numpy(prompt), cfg, max_new=12)
+    jids = np.asarray(jgen.generate(jparams, jnp.asarray(prompt), jcfg, 12))
+    np.testing.assert_array_equal(ids.numpy(), jids)
+
+
+def test_config_without_torch_dtype_boots_f32_like_jax(tmp_path):
+    """A bf16 checkpoint whose config.json names ``"dtype"`` and no
+    ``torch_dtype`` (a current ``transformers``'s): both packages read it
+    as f32, so it fabricates into f32 blobs equal byte for byte and boots
+    in f32.  The booted logits agree with the JAX package's forward of the
+    same checkpoint within ``tests/test_torch_model.py``'s bound (max 0.1,
+    mean 0.02; in f32 they agree far closer) and the greedy ids equal
+    JAX's."""
+    import jax.numpy as jnp
+
+    from distributed_llm_dissemination_tpu.models import generate as jgen
+    from distributed_llm_dissemination_tpu.models import llama as jllama
+
+    path = _write_current_config_checkpoint(str(tmp_path / "ck"))
+    with open(os.path.join(path, "config.json")) as fh:
+        conf = json.load(fh)
+    assert "torch_dtype" not in conf and conf["dtype"] == "bfloat16"
+    name = "hf:" + path
+    cfg, jcfg = hf.config_from_dir(path), jhf.config_from_dir(path)
+    assert cfg.dtype == torch.float32
+    assert np.dtype(jcfg.dtype).name == "float32"
+    blob_ids, seed_layers = _seed_layers(name, cfg)
+    warm = tboot.precompile_boot(cfg, blob_ids, device="cpu")
+    assert warm["compiled"], warm
+    res = tboot.boot_from_layers(cfg, seed_layers, device="cpu")
+    assert res.kind == "full"
+    assert all(t.dtype == torch.float32 for t in res.params["layers"].values())
+    assert res.params["embed"].dtype == torch.float32
+    jparams = jhf.params_from_dir(path)
+    tokens = np.random.default_rng(7).integers(0, cfg.vocab, (2, 16))
     got = forward(res.params, torch.from_numpy(tokens), cfg).numpy()
     want = np.asarray(jllama.forward(jparams, jnp.asarray(tokens), jcfg))
     err = np.abs(got - want)
