@@ -156,14 +156,38 @@ caught):
    distributed_llm_dissemination_tpu_torch.cli.train -resume`` as a
    child process on the card, whose losses equal the library's.
 
+11. swap (run after phase 7): the zero-downtime weight swap at
+   ``--config``'s full width, in phase 6's topology in one process over
+   loopback TCP (leader 0, seeder 1, cold dest 2 on the card) with a
+   ``GenRequester`` as node 9.  v1 (seed ``--seed``) is delivered and
+   booted; a thread sends the ``--prompt`` request for ``--gen`` greedy
+   tokens back to back for the whole phase.  Leg A: a ``kind="swap"``
+   job delivers v2 (seed + 1) under layer ids 1000 + slot and the
+   commit fence flips the dest; leg B does the same for v3 (seed + 2,
+   ids 2000 + slot) with the dest's ``HEADROOM_FACTOR`` raised so that
+   the head blob stages on the host and the flip moves it to the card.
+   Checked: no request fails; every answer equals a direct ``generate``
+   on v1, v2 or v3 on the card (pairwise distinct), and every answer
+   begun after a flip the new version's; each flipped tree equals the
+   version's seeded leaves bit for bit; v1's blobs in the dest's store
+   unchanged; ``swap.flips`` and ``swap.committed`` rise by one per leg,
+   with no staging failure or abort; each job ``done`` with no dropped
+   pair; leg B staged at least one blob on the host; K1 launched both
+   kernels and the plain attention never.  Measured per leg: TTD to the
+   leader's commit and to the dest's confirmation, ``prepare_ms`` and
+   ``flip_ms`` from the swap's log records, request latency before the
+   swap, during staging and after the flip, the longest gap between two
+   answers, peak device memory, and before leg B the headroom as
+   ``mem_get_info`` and as ``hbm_headroom_bytes`` read it.
+
 Then the ``{"kernels": [...]}`` line (K1's two kernels, their f16 and f32
 instances, then K2 and K3 and their f16 output instances; ``launches`` is
 the main path's count -- phase 3 for K1, phase 9's f16 and f32 rounds
 for its f16 and f32 instances, phase 8's ``ModelCodec`` round for K2 and
 K3 -- and
 ``launches_by_path`` shows every counted path, phase 10's ``train``
-among them; the prefill entry's ``train`` holds K1 at the training
-step's block),
+among them, with phase 11's ``swap``; the prefill entry's ``train``
+holds K1 at the training step's block),
 the script's wall time, the card's name and power limit as
 ``nvidia-smi`` prints them, and, last, the ``{"ok": true, ...}`` line.
 """
@@ -1417,6 +1441,305 @@ def phase_cli(cfg, args, fa, fab, prompt):
              name: _one(recs, "device memory", name)["peak_allocated_bytes"]
              for name, recs in logs.items()},
          phase_wall_s=wall)
+
+
+# ------------------------------------------------------------ phase 11
+
+SWAP_BASES = {"v2": 1000, "v3": 2000}  # layer ids of each version's blobs
+SWAP_SOAK_S = 2.0  # serving on after each flip is confirmed
+SWAP_REQUESTER = 9
+
+
+class _LogTap:
+    """The port's JSON log stream, passed through, keeping the records
+    whose message names the swap (the controller's prepare and flip
+    records carry ``prepare_ms`` and ``flip_ms``)."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.records = []
+
+    def write(self, line):
+        if '"swap' in line:
+            for part in line.splitlines():
+                try:
+                    rec = json.loads(part)
+                except ValueError:
+                    continue
+                if isinstance(rec, dict) and str(
+                        rec.get("message", "")).startswith("swap"):
+                    self.records.append(rec)
+        return self.inner.write(line)
+
+    def flush(self):
+        self.inner.flush()
+
+
+def _seeded_tree_equal(cfg, serde, params, seed):
+    """Every leaf of a served tree against ``seed``'s leaves drawn on the
+    card, bit for bit, one blob at a time."""
+    import torch
+
+    head = serde.head_blob_id(cfg)
+    for lid in range(head + 1):
+        for name, t in serde.seeded_leaves(cfg, lid, seed, "cuda").items():
+            got = params[name] if lid == head else params["layers"][name][lid]
+            check(got.dtype == t.dtype and got.device == t.device
+                  and torch.equal(got.view(torch.int16), t.view(torch.int16)),
+                  f"served seed-{seed} blob {lid} leaf {name} != seeded leaf")
+
+
+def _latency(rows):
+    """Count, p50 and max of the (start, end, ids) rows' latency, in ms."""
+    ms = sorted((e - s) * 1e3 for s, e, _ in rows)
+    if not ms:
+        return {"n": 0, "p50_ms": None, "max_ms": None}
+    return {"n": len(ms), "p50_ms": statistics.median(ms), "max_ms": ms[-1]}
+
+
+def _max_gap_ms(rows, t0, t1):
+    """The longest time between two answers that end in [t0, t1], the
+    window's edges counted as answers."""
+    ends = [t0] + sorted(e for _, e, _ in rows if t0 <= e <= t1) + [t1]
+    return max(b - a for a, b in zip(ends, ends[1:])) * 1e3
+
+
+def phase_swap(cfg, args, fa, fab, prompt):
+    """The zero-downtime swap on the card (module docstring, phase 11).
+    Returns K1's launches in the phase, by kernel."""
+    import os
+
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.core.types import (
+        LayerLocation, LayerMeta, LayerSrc, SourceType)
+    from distributed_llm_dissemination_tpu_torch.models import serde
+    from distributed_llm_dissemination_tpu_torch.models.generate import (
+        generate)
+    from distributed_llm_dissemination_tpu_torch.parallel.ingest import (
+        hbm_headroom_bytes)
+    from distributed_llm_dissemination_tpu_torch.parallel.mesh import (
+        assignment_to_placement)
+    from distributed_llm_dissemination_tpu_torch.runtime import (
+        FlowRetransmitLeaderNode, FlowRetransmitReceiverNode, Node)
+    from distributed_llm_dissemination_tpu_torch.runtime.client import (
+        GenRequester)
+    from distributed_llm_dissemination_tpu_torch.transport.tcp import (
+        TcpTransport)
+    from distributed_llm_dissemination_tpu_torch.utils import trace
+    from distributed_llm_dissemination_tpu_torch.utils.logging import log
+
+    t_phase = time.monotonic()
+    head = serde.head_blob_id(cfg)
+    ids = list(range(head + 1))
+    head_bytes = serde.blob_nbytes(cfg, head)
+    seeds = {"v1": args.seed, "v2": args.seed + 1, "v3": args.seed + 2}
+    blobs = {"v1": fab["blobs"]}
+    t0 = time.monotonic()
+    for v in ("v2", "v3"):
+        blobs[v] = fabricate(cfg, serde, seeds[v])[0]
+    fabricate_s = time.monotonic() - t0
+    # Each version's greedy ids from a direct generate on its params,
+    # through K1, before the counted run.
+    want = {}
+    for v in ("v1", "v2", "v3"):
+        params = card_params(cfg, serde, seeds[v], blobs[v])
+        want[v] = generate(params, prompt, cfg, args.gen)[0].tolist()
+        del params
+    check(want["v1"] == fab["tokens"],
+          f"v1's direct ids {want['v1']} != phase 3's {fab['tokens']}")
+    check(len({tuple(t) for t in want.values()}) == 3,
+          f"the three versions' ids are not pairwise distinct: {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def holdings():
+        # Leader and seeder share one host copy of each version's blobs.
+        out = {}
+        for v, base in (("v1", 0), ("v2", SWAP_BASES["v2"]),
+                        ("v3", SWAP_BASES["v3"])):
+            for lid in ids:
+                out[base + lid] = LayerSrc(
+                    inmem_data=blobs[v][lid], data_size=len(blobs[v][lid]),
+                    meta=LayerMeta(location=LayerLocation.INMEM,
+                                   source_type=SourceType.MEM))
+        return out
+
+    assignment = {2: {lid: LayerMeta() for lid in ids}}
+    placement = assignment_to_placement(assignment)  # one card, one stage
+    nic = {0: SEEDER_NIC, 1: SEEDER_NIC, 2: DEST_NIC}
+    os.environ["DLD_BOOT_DONATE"] = "0"  # v1's staged blobs stay checkable
+    ts = {i: TcpTransport("127.0.0.1:0") for i in (0, 1, 2, SWAP_REQUESTER)}
+    for t in ts.values():
+        t.addr_registry.update({i: u.addr for i, u in ts.items()})
+    threads_before = set(threading.enumerate())
+    tap = _LogTap(log.stream)
+    log.stream = tap
+    trace.reset_run()
+    fa.reset_counts()  # the phase's K1 counts start here
+    leader = FlowRetransmitLeaderNode(Node(0, 0, ts[0]), holdings(),
+                                      assignment, nic, expected_nodes={1, 2})
+    seeder = FlowRetransmitReceiverNode(Node(1, 0, ts[1]), holdings())
+    dest = FlowRetransmitReceiverNode(Node(2, 0, ts[2]), {}, stage_hbm=True,
+                                      placement=placement, boot_cfg=cfg)
+    requester = GenRequester(ts[SWAP_REQUESTER], my_id=SWAP_REQUESTER)
+    plist = prompt[0].tolist()
+    rows, failures = [], []  # rows: (start, end, ids) of each answer
+    stop = threading.Event()
+
+    def hammer():
+        while not stop.is_set():
+            t_req = time.monotonic()
+            try:
+                got = requester.request(2, plist, args.gen, timeout=120)
+            except Exception as e:  # noqa: BLE001 -- every failure counts
+                failures.append(repr(e))
+                continue
+            rows.append((t_req, time.monotonic(), got))
+
+    def wait_for(cond, what, timeout_s=300.0):
+        deadline = time.monotonic() + timeout_s
+        while not cond():
+            check(time.monotonic() < deadline, f"timed out waiting for {what}")
+            time.sleep(0.005)
+        return time.monotonic()
+
+    legs = {}
+    hammer_t = threading.Thread(target=hammer, name="swap-hammer",
+                                daemon=True)
+    try:
+        seeder.announce()
+        dest.announce()
+        leader.start_distribution().get(timeout=300)
+        leader.ready().get(timeout=600)
+        check(set(leader.boot_ready().get(timeout=600)) == {2}, "v1 boot")
+        check(requester.request(2, plist, args.gen, timeout=120)
+              == want["v1"], "v1 does not serve its direct ids")
+        hammer_t.start()
+        t_prev = time.monotonic()
+        time.sleep(1.0)  # answers before the first swap
+        for v, prev in (("v2", "v1"), ("v3", "v2")):
+            leg = {}
+            if v == "v3":
+                # Leg B: what both probes read once v1's tree is released
+                # (the allocator keeps its blocks), then the factor that
+                # stages the head blob on the host and the layer blobs on
+                # the card.
+                gc.collect()
+                probe = hbm_headroom_bytes()
+                leg["headroom_mem_get_info"] = torch.cuda.mem_get_info()[0]
+                leg["headroom_probe"] = probe
+                dest.swap.HEADROOM_FACTOR = 1.01 * probe / head_bytes
+                leg["headroom_factor"] = dest.swap.HEADROOM_FACTOR
+            counters = dict(trace.counter_totals())
+            torch.cuda.reset_peak_memory_stats()
+            base = SWAP_BASES[v]
+            t_submit = time.monotonic()
+            leader.submit_job(
+                f"swap-{v}", {2: {base + lid: LayerMeta() for lid in ids}},
+                priority=2, kind="swap", version=v, swap_base=base)
+            t_commit = wait_for(lambda: leader.swap_table().get(v, {}).get(
+                "State") == "committed", f"{v} committed at the leader")
+            t_flip = wait_for(lambda: dest.serving_version == v,
+                              f"{v} serving at the dest")
+            t_confirm = wait_for(
+                lambda: 2 in leader.swap_table()[v]["Confirmed"],
+                f"{v}'s flip confirmed at the leader")
+            peak = torch.cuda.max_memory_allocated()
+            time.sleep(SWAP_SOAK_S)
+            t_end = time.monotonic()
+            totals = trace.counter_totals()
+            delta = {k: totals.get(k, 0) - counters.get(k, 0)
+                     for k in ("swap.flips", "swap.committed",
+                               "swap.staging_failed", "swap.aborts")}
+            check(delta["swap.flips"] == 1 and delta["swap.committed"] == 1,
+                  f"{v}: swap counters {delta}")
+            check(delta["swap.staging_failed"] == 0
+                  and delta["swap.aborts"] == 0, f"{v}: {delta}")
+            job = leader.jobs.table()[f"swap-{v}"]
+            check(job["State"] == "done" and job["DroppedPairs"] == 0,
+                  f"{v}: job row {job}")
+            rec = dest.swap._versions[v]
+            host_slots = sorted(rec["host_slots"])
+            check(rec["state"] == "committed", f"{v}: dest state {rec}")
+            check(v == "v2" or host_slots, "leg B staged no blob on the host")
+            _seeded_tree_equal(cfg, serde, dest.boot_result.params,
+                               seeds[v])
+            swap_recs = [r for r in tap.records if r.get("version") == v]
+            prep = [r for r in swap_recs if "prepare_ms" in r]
+            flip = [r for r in swap_recs if "flip_ms" in r]
+            check(len(prep) == 1 and len(flip) == 1,
+                  f"{v}: {len(prep)} prepare and {len(flip)} flip records")
+            # Answers by when they ended: since the last flip and before
+            # the submit, during the staging (submit to flip), and begun
+            # after the flip.
+            before = [r for r in rows if r[0] >= t_prev and r[1] <= t_submit]
+            staging = [r for r in rows if t_submit < r[1] <= t_flip]
+            after = [r for r in rows if r[0] >= t_flip and r[1] <= t_end]
+            check(after, f"{v}: no answer after the flip")
+            for r in after:
+                check(r[2] == want[v],
+                      f"{v}: an answer after the flip is not {v}'s ids")
+            for r in rows:
+                check(r[2] in want.values(),
+                      f"an answer is no version's ids: {r[2]}")
+            for r in staging:
+                check(r[2] in (want[prev], want[v]),
+                      f"{v}: an answer during staging is neither "
+                      f"{prev}'s nor {v}'s ids")
+            leg.update(
+                ttd_commit_s=t_commit - t_submit,
+                ttd_confirm_s=t_confirm - t_submit,
+                flip_seen_s=t_flip - t_submit,
+                prepare_ms=prep[0]["prepare_ms"], flip_ms=flip[0]["flip_ms"],
+                host_staged_blobs=prep[0]["host_staged_blobs"],
+                host_slots=host_slots,
+                latency_before=_latency(before),
+                latency_staging=_latency(staging),
+                latency_after=_latency(after),
+                max_gap_ms=_max_gap_ms(rows, t_submit, t_end),
+                max_memory_allocated=peak,
+                bytes=sum(len(b) for b in blobs[v].values()))
+            legs[v] = leg
+            t_prev = t_flip
+        stop.set()
+        hammer_t.join(timeout=180)
+        check(not hammer_t.is_alive(), "the request thread did not end")
+        check(not failures, f"requests failed: {failures[:3]}")
+        for lid in ids:  # v1's blobs in the dest's store, unchanged
+            src = dest.layers[lid]
+            check(bytes(src.inmem_data[:src.data_size]) == blobs["v1"][lid],
+                  f"v1 blob {lid} changed in the dest's store")
+            check(src.device_array is not None and torch.equal(
+                src.device_array,
+                torch.frombuffer(blobs["v1"][lid], dtype=torch.uint8).cuda()),
+                f"v1 blob {lid} changed on the device")
+        launches = dict(fa.launches_by_kernel)
+        plain = fa.plain_calls
+    finally:
+        stop.set()
+        log.stream = tap.inner
+        requester.close()
+        leader.close()
+        seeder.close()
+        dest.close()
+        for t in ts.values():
+            t.close()
+        hammer_t.join(timeout=180)
+        _join_round_threads(threads_before)
+        os.environ.pop("DLD_BOOT_DONATE", None)
+    check(launches["prefill"] > 0 and launches["decode"] > 0,
+          f"K1 launches in the phase {launches}")
+    check(plain == 0, f"{plain} plain attention calls on the card")
+    emit("swap", config=cfg.name, transport="tcp loopback",
+         versions={v: {"seed": s, "swap_base": SWAP_BASES.get(v, 0)}
+                   for v, s in seeds.items()},
+         fabricate_v2_v3_s=fabricate_s, requests=len(rows),
+         failed_requests=len(failures), ids_distinct=True,
+         legs=legs, attention_launches_by_kernel=launches,
+         attention_plain_calls=plain,
+         phase_wall_s=time.monotonic() - t_phase)
+    return launches
 
 
 # ------------------------------------------------------------ phase 8
@@ -2941,6 +3264,7 @@ def main() -> int:
     raw_ttd_s = phase_dissemination(cfg, args, fa, fab, prompt)
     phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=True)
     phase_cli(cfg, args, fa, fab, prompt)
+    swap_launches = phase_swap(cfg, args, fa, fab, prompt)
     codec_stats = phase_codec(cfg, args, fa, fab, prompt, raw_ttd_s)
     hf_launches, f32_launches = phase_hf(cfg, args, fa, fab, prompt)
     f16_launches = phase_hf_f16(cfg, args, fa, fab, prompt)
@@ -2949,7 +3273,7 @@ def main() -> int:
     train_launches, train_block = phase_train(cfg, args, fa, fab)
     paths = {"main": launches, "hf": hf_launches,
              "moe_raw": moe_launches["raw"], "moe_int8": moe_launches["int8"],
-             "train": train_launches}
+             "train": train_launches, "swap": swap_launches}
     for kind, st in codec_stats.items():
         st["launches"] = {"codec": st["launches"],
                           "moe_int8": moe_k2 if kind == "int8" else 0}

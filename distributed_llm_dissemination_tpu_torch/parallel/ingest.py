@@ -242,10 +242,15 @@ def finalize_many(ingests: Sequence[ShardedLayerIngest],
 
 
 def hbm_headroom_bytes(device=None) -> Optional[int]:
-    """Free memory on the CUDA ``device`` (None = the CUDA card), or
-    ``None`` for the CPU, which reports no device memory."""
+    """What this process can still allocate on the CUDA ``device`` (None
+    = the CUDA card), or ``None`` for the CPU, which reports no device
+    memory.  The card's free bytes plus the blocks torch's caching
+    allocator holds reserved but unused: ``mem_get_info`` counts those
+    as used, and the JAX package's ``bytes_limit - bytes_in_use`` does
+    not."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         return None
     free, _ = torch.cuda.mem_get_info(dev)
-    return int(free)
+    cached = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return int(free) + max(0, int(cached))

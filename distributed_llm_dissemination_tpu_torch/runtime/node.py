@@ -131,6 +131,12 @@ class MessageLoop:
                 msg = q.get(timeout=0.1)
             except queue.Empty:
                 continue
+            if self._stop.is_set():
+                # stop() landed while this get was blocked: the message
+                # belongs to whichever loop drains the queue next (a
+                # client closed on a transport another loop now owns).
+                q.put(msg)
+                break
             if handled_key is not None:
                 telemetry.count(handled_key)
             handler = self._handlers.get(type(msg))

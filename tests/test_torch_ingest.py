@@ -187,6 +187,26 @@ def test_hbm_headroom_unknown_on_cpu():
     assert ting.hbm_headroom_bytes("cpu") is None
 
 
+def test_hbm_headroom_counts_the_allocator_cache(monkeypatch):
+    """Blocks torch's caching allocator keeps reserved after a free are
+    the process's to allocate again: ``mem_get_info`` counts them as
+    used, the probe does not (the JAX package's ``limit - in_use``)."""
+    gb = 10 ** 9
+    card = torch.device("cuda", 0)
+    monkeypatch.setattr(ting, "resolve_device", lambda device=None: card)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda device=None: (2 * gb, 80 * gb))
+    monkeypatch.setattr(torch.cuda, "memory_reserved",
+                        lambda device=None: 30 * gb)
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda device=None: 20 * gb)
+    assert ting.hbm_headroom_bytes() == 12 * gb
+    # Nothing cached: the card's free bytes alone.
+    monkeypatch.setattr(torch.cuda, "memory_allocated",
+                        lambda device=None: 30 * gb)
+    assert ting.hbm_headroom_bytes(card) == 2 * gb
+
+
 @pytest.mark.parametrize("total,parts,min_size", [
     (0, 4, 1), (1, 4, 1), (10, 3, 1), (100, 7, 1), (1 << 20, 4, 1 << 18),
     (1000, 8, 300), (436_224_000, 8, 1), (17, 17, 1), (5, 8, 1),

@@ -310,3 +310,36 @@ def test_receiver_already_has_layers_short_circuit(kind):
         assert bytes(receivers[0].layers[1].inmem_data) == layer_bytes(1)
     finally:
         close_all(leader, receivers, ts)
+
+
+def test_stopped_loop_hands_back_a_message_it_dequeued():
+    """A loop whose ``stop()`` lands while its ``get`` is blocked puts the
+    message back for the next loop on that transport (a client closed on
+    a transport that another loop now drains) instead of dropping it."""
+    import queue
+
+    from distributed_llm_dissemination_tpu_torch.runtime.node import (
+        MessageLoop,
+    )
+
+    class _StopDuringGet(queue.Queue):
+        def get(self, block=True, timeout=None):
+            msg = super().get(block, timeout)
+            loop.stop()
+            return msg
+
+    q = _StopDuringGet()
+    q.put("reply")
+
+    class _Transport:
+        def deliver(self):
+            return q
+
+    handled = []
+    loop = MessageLoop(_Transport())
+    loop.register(str, handled.append)
+    loop.start()
+    loop._thread.join(timeout=TIMEOUT)
+    assert not loop._thread.is_alive()
+    assert handled == []
+    assert q.queue.popleft() == "reply"

@@ -118,11 +118,41 @@ def test_restore_of_another_model_or_mesh_raises(tmp_path):
     f32 = dataclasses.replace(cfg, dtype=torch.float32)
     with pytest.raises(ValueError, match="float32"):
         train_ckpt.restore_train_state(path, f32, mesh, "cpu")
+    # Another mesh restores: the same record as a dp = 2 writer's two
+    # ranks would hold it (dp splits no leaf).
     src = os.path.join(path, "rank00000-of-00001.pt")
     record = torch.load(src, weights_only=True)
+    os.remove(src)
     record["mesh"] = dict(record["mesh"], dp=2)
-    torch.save(record, src)
-    with pytest.raises(ValueError, match="mesh"):
+    for r in range(2):
+        torch.save(dict(record, rank=r, world=2),
+                   os.path.join(path, f"rank{r:05d}-of-00002.pt"))
+    got_p, got_o = train_ckpt.restore_train_state(path, cfg, mesh, "cpu")
+    _assert_same(got_p, params)
+    _assert_same(got_o, opt)
+    # A format-1 record (no specs) restores onto its own mesh only.
+    own = dict(record, format=1, mesh=dict(mesh.shape))
+    del own["specs"]
+    one = str(tmp_path / "format1")
+    os.makedirs(one)
+    torch.save(own, os.path.join(one, "rank00000-of-00001.pt"))
+    _assert_same(train_ckpt.restore_train_state(one, cfg, mesh, "cpu")[0],
+                 params)
+    torch.save(dict(own, mesh=record["mesh"]),
+               os.path.join(one, "rank00000-of-00001.pt"))
+    with pytest.raises(ValueError, match="format-1"):
+        train_ckpt.restore_train_state(one, cfg, mesh, "cpu")
+    # A mesh the config cannot be split over (tiny has 2 kv heads).
+    bad = str(tmp_path / "tp3")
+    os.makedirs(bad)
+    for r in range(3):
+        torch.save(dict(record, mesh=dict(mesh.shape, tp=3), rank=r, world=3),
+                   os.path.join(bad, f"rank{r:05d}-of-00003.pt"))
+    with pytest.raises(ValueError, match="split"):
+        train_ckpt.restore_train_state(bad, cfg, mesh, "cpu")
+    # A missing rank file.
+    os.remove(os.path.join(path, "rank00001-of-00002.pt"))
+    with pytest.raises(ValueError, match=r"no shard file for ranks \[1\]"):
         train_ckpt.restore_train_state(path, cfg, mesh, "cpu")
     with pytest.raises(ValueError, match="no shard file"):
         train_ckpt.restore_train_state(str(tmp_path / "none"), cfg, mesh,
@@ -230,3 +260,117 @@ def test_cli_train_without_resume_waits_for_the_fabric(tmp_path):
     with pytest.raises(SystemExit, match="Model"):
         tcli.main(["-f", _conf(tmp_path, model=""), "-resume", "-ckpt",
                    str(tmp_path / "ck"), "-device", "cpu"])
+
+
+# ------------------------------------------------ across meshes, vs JAX
+
+
+def _jax_state(jcfg, mesh):
+    """A seeded ``tiny`` training state on ``mesh``: the params of
+    ``init_params(key(0))``, seeded f32 moments and step 3, each leaf
+    placed with the train step's sharding; and the same state as numpy
+    by path (bf16 leaves as uint16 bits)."""
+    from jax.sharding import NamedSharding
+
+    rng = np.random.default_rng(11)
+    params = jax.tree.map(np.asarray, jllama.init_params(
+        jcfg, jax.random.key(0)))
+    moments = {m: jax.tree.map(
+        lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
+        for m in ("m", "v")}
+    state = {"params": params, "opt": {**moments,
+                                       "step": np.asarray(3, np.int32)}}
+    specs = {"params": jsh.param_specs(jcfg),
+             "opt": jsh.adamw_state_specs(jcfg)}
+    placed = jax.tree.map(
+        lambda a, spec: jax.device_put(a, NamedSharding(mesh, spec)),
+        state, specs)
+    return placed, _flat(state)
+
+
+def _flat(tree):
+    out = {}
+    for path, a in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        a = np.asarray(a)
+        key = "/".join(str(getattr(k, "key", k)) for k in path)
+        out[key] = a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+    return out
+
+
+def _gathered(ranks, cfg, full):
+    """Each rank's restored local leaves placed at their shards of the
+    full shape; every element must be written."""
+    out = {}
+    specs = dict(tsh.tree_leaves(tsh.param_specs(cfg)))
+    for key, ref in full.items():
+        got = np.zeros_like(ref)
+        seen = np.zeros(ref.shape, bool)
+        path = tuple(key.split("/"))
+        spec = specs.get(path[2:] if path[0] == "opt" else path[1:], ())
+        for r in ranks:
+            view = train_ckpt._Coords(
+                {a: int(r[f"size/{a}"]) for a in tsh.AXES},
+                int(r["rank"]))
+            idx = tsh.shard_slices(ref.shape, spec, view)
+            got[idx] = r[key]
+            seen[idx] = True
+        assert seen.all(), key
+        out[key] = got
+    return out
+
+
+@pytest.mark.timeout(300)
+def test_cross_mesh_restore_matches_jax(tmp_path):
+    """A training state saved under a 4-rank mesh (pp 2, tp 2) restores
+    under 1 rank and under 2 (tp 2), every leaf equal bit for bit to the
+    JAX package's own restore of the same state saved under
+    ``make_train_mesh(8)`` (sp 2, pp 2, tp 2) and restored under
+    ``make_train_mesh(2)``, gathered."""
+    from distributed_llm_dissemination_tpu.models import (
+        train_ckpt as jtrain_ckpt,
+    )
+    from torch_dist_worker import spawn_world
+
+    jcfg = jllama.CONFIGS["tiny"]
+    cfg = tllama.CONFIGS["tiny"]
+    placed, full = _jax_state(jcfg, jsh.make_train_mesh(8, jcfg))
+    jpath = str(tmp_path / "jax_ck")
+    jtrain_ckpt.save_train_state(jpath, placed["params"], placed["opt"])
+    jp, jo = jtrain_ckpt.restore_train_state(
+        jpath, jcfg, jsh.make_train_mesh(2, jcfg))
+    want = _flat({"params": jp, "opt": jo})
+    assert want.keys() == full.keys()
+    for key in full:
+        np.testing.assert_array_equal(want[key], full[key])
+
+    ck = str(tmp_path / "port_ck")
+    bf16 = [k for k in full if full[k].dtype == np.uint16]
+    mesh4 = tsh.factor_mesh_axes(4, cfg)
+    assert mesh4 == {"dp": 1, "sp": 1, "pp": 2, "ep": 1, "tp": 2}
+    (tmp_path / "save").mkdir()
+    spawn_world(tmp_path / "save", 4,
+                {"kind": "ckpt_save", "config": "tiny", "mesh": mesh4,
+                 "ckpt": ck, "bf16": bf16}, full)
+    assert len(os.listdir(ck)) == 4
+    # One rank, in process.
+    params, opt = train_ckpt.restore_train_state(
+        ck, cfg, tsh.make_train_mesh(1, cfg), "cpu")
+    one = {"/".join(p): (t.view(torch.int16).numpy().view(np.uint16)
+                         if t.dtype == torch.bfloat16 else t.numpy())
+           for p, t in tsh.tree_leaves({"params": params, "opt": opt})}
+    assert one.keys() == want.keys()
+    for key in want:
+        assert one[key].dtype == want[key].dtype, key
+        np.testing.assert_array_equal(one[key], want[key], err_msg=key)
+    # Two ranks.
+    mesh2 = tsh.factor_mesh_axes(2, cfg)
+    (tmp_path / "restore").mkdir()
+    ranks = spawn_world(tmp_path / "restore", 2,
+                        {"kind": "ckpt_restore", "config": "tiny",
+                         "mesh": mesh2, "ckpt": ck}, {})
+    for r, res in enumerate(ranks):
+        res["rank"] = r
+        res.update({f"size/{a}": mesh2[a] for a in tsh.AXES})
+    two = _gathered(ranks, cfg, want)
+    for key in want:
+        np.testing.assert_array_equal(two[key], want[key], err_msg=key)

@@ -15,6 +15,13 @@ starts the whole world from a test.  Jobs:
   params after one SGD step and, from the same start, after one AdamW
   step.
 
+- ``ckpt_save``: the job's full training state (``params/...``,
+  ``opt/m/...``, ``opt/v/...``, ``opt/step``; bf16 leaves as uint16
+  bits) sharded over the job's mesh and written with
+  ``train_ckpt.save_train_state`` to the job's ``ckpt``;
+- ``ckpt_restore``: ``train_ckpt.restore_train_state`` of the job's
+  ``ckpt`` onto the job's mesh; every local leaf (bf16 as uint16 bits).
+
 Each result carries this rank's mesh coordinates (``coord/<axis>``), so
 the test can check the row-major fill against its own.  Imports neither
 ``jax`` nor the JAX package.
@@ -94,6 +101,43 @@ def run_step(job, inputs):
     return out
 
 
+def _torch_leaf(a, bf16):
+    t = torch.from_numpy(np.array(a))  # keeps 0-d leaves 0-d
+    return t.view(torch.bfloat16) if bf16 else t
+
+
+def _numpy_leaf(t):
+    return (t.view(torch.int16).numpy().view(np.uint16)
+            if t.dtype == torch.bfloat16 else t.numpy())
+
+
+def run_ckpt(job, inputs):
+    from distributed_llm_dissemination_tpu_torch.models import train_ckpt
+
+    cfg = llama.CONFIGS[job["config"]]
+    mesh = make_mesh([job["mesh"][a] for a in sharded.AXES], sharded.AXES)
+    out = dict(_coords(mesh))
+    if job["kind"] == "ckpt_restore":
+        params, opt = train_ckpt.restore_train_state(job["ckpt"], cfg, mesh,
+                                                     "cpu")
+        state = {"params": params, "opt": opt}
+        for path, t in sharded.tree_leaves(state):
+            out["/".join(path)] = _numpy_leaf(t)
+        return out
+    specs = dict(sharded.tree_leaves(sharded.param_specs(cfg)))
+    leaves = []
+    for key, a in inputs.items():
+        path = tuple(key.split("/"))
+        full = _torch_leaf(a, key in job["bf16"])
+        spec = specs.get(path[2:] if path[0] == "opt" else path[1:], ())
+        leaves.append((path, full[sharded.shard_slices(full.shape, spec,
+                                                       mesh)].clone()))
+    state = sharded.tree_unflatten(leaves)
+    train_ckpt.save_train_state(job["ckpt"], state["params"], state["opt"],
+                                mesh)
+    return out
+
+
 def spawn_world(tmp_path, world: int, job: dict, inputs: dict,
                 timeout: float = 120.0):
     """Run ``job`` on ``world`` ranks, one process each, rendezvous through
@@ -147,7 +191,8 @@ def main(argv):
     try:
         with np.load(job["inputs"]) as data:
             inputs = {k: data[k] for k in data.files}
-        out = {"ring": run_ring, "step": run_step}[job["kind"]](job, inputs)
+        out = {"ring": run_ring, "step": run_step, "ckpt_save": run_ckpt,
+               "ckpt_restore": run_ckpt}[job["kind"]](job, inputs)
         np.savez(os.path.join(job["out"], f"rank{rank}.npz"), **out)
         dist.barrier()
     finally:
