@@ -2,7 +2,10 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it.
 
     python3 chip_smoke.py [--config llama3-8b-d4] [--prompt 128] [--gen 32]
-                          [--long-prompt 2048] [--seed 0]
+                          [--long-prompt 2048] [--seed 0] [--only cards4]
+
+``--only cards4`` runs phase 1 and phase 16 alone (it needs four cards
+and exits non-zero with fewer).
 
 Phases, one JSON line each (any failure exits non-zero; no phase is
 caught):
@@ -273,6 +276,39 @@ caught):
    layer fragments on TCP, at least one fabric delivery per blob.
    Measured: each row's wall time and the phase's.
 
+16. cards4 (after phase 14; needs ``torch.cuda.device_count() >= 4``, else
+   one line ``{"phase": "cards4", "ran": false, "cards": N}``): the port
+   across four cards of one host.  (a) each card's ``nvidia-smi`` line,
+   ``nvidia-smi topo -m``, the peer-access matrix and a 1 GiB copy from
+   card 0 to each other card (GB/s, the ceiling of a cross-card move);
+   then K1's decode and bf16 prefill, K2 and K3 with their tensors on
+   each card while card 0 is current, each against its plain version at
+   phase 2's and phase 8's tolerances and counted on its tensors' card.
+   (b) one controller: ``cli.podrun.run_pod`` of phase 12's topology with
+   leader ``CARDS4_LEADER`` and the mesh's slots on the cards in order
+   (no ``device``): the dests' stages on two cards, the seeders on the
+   other two.  Checked: each dest's blobs on its stage's card, byte-exact
+   and digest-exact, no layer byte on the transport, every fallback
+   counter at 0, ids equal to one card's ``generate``, K1 launched only on
+   the dests' cards as phase 12 counts them; then a ``ModelCodec`` int8
+   round whose stage leaves (K2 on each dest's card) equal the plain
+   decode bit for bit; then phase 12's gather leg with one shard per
+   card.  Measured: TTD, GB/s over TTD against the copy
+   ceiling, the pod's warm decode ms per token against one card's.  (c)
+   one ``cli.main`` process per card on nccl: leader 0, seeder 1, dests 2
+   and 3 (phase 14's checks, every ``"process group up"`` record saying
+   nccl, each dest's K1 launches on its own card).  (d) ``cli.train
+   -steps 3 -seq 2048`` in a world of four processes (``WORLD_SIZE``,
+   ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``; nccl; tp 2 x
+   pp 2; rank 0 disseminates and broadcasts), then in a world of one on
+   card 0.  Checked: every rank's shards equal the delivered params'
+   slices (digests, ``-params-digest``), the one-rank params equal them
+   whole, losses within ``CARDS4_LOSS_REL``, each rank's K1 prefill
+   launches on its own card and as many as the one-rank run's (a rank
+   runs its n_layers / pp layers once per pipeline hop, pp hops a step).  Measured: ms
+   per step, tokens/s, peak memory per card, K1 prefill launches per
+   step per card.  Logs in ``build/chip_smoke_cards4*/``.
+
 Then the ``{"kernels": [...]}`` line (K1's two kernels, their f16 and f32
 instances, then K2 and K3 and their f16 output instances; ``launches`` is
 the main path's count -- phase 3 for K1, phase 9's f16 and f32 rounds
@@ -282,7 +318,9 @@ K3 -- and
 among them, with phase 11's ``swap``, phase 12's ``fabric`` (K2's
 ``fabric``: its int8 round and the gather's decode), phase 13's ``pods``
 (K2's: its int8 round), phase 14's ``spmd`` (the dests' processes) and
-phase 15's ``ttd_matrix`` (the physical row's dest process);
+phase 15's ``ttd_matrix`` (the physical row's dest process) and phase
+16's ``cards4`` (K1: 16b's two rounds, 16c's dests and 16d's ranks; K2:
+16b's int8 round and its gather; null where the phase did not run);
 the prefill entry's
 ``train``
 holds K1 at the training step's block),
@@ -471,22 +509,24 @@ def _row_max_err(a, b):
 
 
 def attention_case(fa, b, kvh, g, sq, t, hd, q_off, k_off, dtype, seed,
-                   calls=10, host=False, timed=True):
+                   calls=10, host=False, timed=True, device="cuda"):
     """Phase-2 record for one shape: which kernel served it, its errors
     against the plain version and the f64 oracle (checked), and, when
-    ``timed``, the three device times beside the bound."""
+    ``timed``, the three device times beside the bound.  ``device``: the
+    card the tensors lie on (phase 16a: each card while card 0 is
+    current)."""
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
 
     qg, k, v = rnd(b, kvh, g, sq, hd), rnd(b, kvh, t, hd), rnd(b, kvh, t, hd)
     name = fa.kernel_for(sq, g, dtype)
     before = dict(fa.launches_by_kernel)
     got = fa.block_attention(qg, k, v, q_off, k_off)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(qg.device)
     check(fa.launches_by_kernel[name] == before[name] + 1,
           f"{name} kernel launch not counted")
     plain = fa.block_attention_ref(qg, k, v, q_off, k_off)
@@ -1865,32 +1905,33 @@ def _bits(t):
     return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
 
 
-def _to_card(data, shift=0):
+def _to_card(data, shift=0, device="cuda"):
     """A wire blob on the card, starting ``shift`` bytes into its buffer."""
     import torch
 
-    buf = torch.empty(len(data) + shift, dtype=torch.uint8, device="cuda")
+    buf = torch.empty(len(data) + shift, dtype=torch.uint8, device=device)
     buf[shift:].copy_(torch.frombuffer(data, dtype=torch.uint8))
     return buf[shift:]
 
 
 def codec_kernel_case(dq, quant, kind, name, data, specs, dtype, shift=0,
-                      timed=False):
+                      timed=False, device="cuda"):
     """K2/K3 (``kind``) against its plain version on the card on one wire
     blob, bit for bit.  ``timed``: also the kernel's and the plain
     version's device ms per call (CUDA-graph replay) and the bytes bound.
-    Returns (record, the kernel's leaves)."""
+    ``device``: the card the blob lies on.  Returns (record, the kernel's
+    leaves)."""
     import torch
 
     table = quant.leaf_table(kind, specs, dtype)
-    blob = _to_card(data, shift)
-    kern = [torch.empty(leaf.shape, dtype=dtype, device="cuda")
+    blob = _to_card(data, shift, device)
+    kern = [torch.empty(leaf.shape, dtype=dtype, device=device)
             for leaf in table]
     plain = [torch.empty_like(k) for k in kern]
     ref = getattr(dq, f"dequant_{kind}_ref")
     dq.dequant(kind, blob, table, kern)
     ref(blob, table, plain)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(blob.device)
     err = 0.0
     for leaf, a, b in zip(table, kern, plain):
         check(torch.equal(_bits(a), _bits(b)),
@@ -2256,40 +2297,50 @@ FABRIC_UNEVEN_CUT = 3  # the uneven partition (3/1 of llama3-8b-d4's 4)
 FABRIC_SHARDS = 4  # gather_byte_shards leg: shards of layer blob 0, int8
 
 
-def fabric_conf(cfg, args, blobs, cut, codec="raw"):
-    """Phase 12's topology as ``cli.podrun`` reads it: leader 0 (no
-    layers), seeders 1 and 2 holding every blob, dest 3 assigned the first
-    ``cut`` layer blobs and dest 4 the rest with the head; a ``nodes``
-    mesh axis of 5 slots.  The dests' NIC is twice a seeder's, as phase
-    6's, so the max-flow plan may need both seeders."""
-    from distributed_llm_dissemination_tpu_torch.core import config as cfg_mod
-
-    held = {"2": {str(lid): {"LayerSize": len(b)} for lid, b in blobs.items()}}
-    head = max(blobs)
-    nodes = [{"Id": 0, "Addr": "0", "IsLeader": True,
+def fabric_conf_dict(model, seed, sizes, cut, codec="raw", leader=0):
+    """Phase 12's topology as JSON: leader ``leader`` (no layers), seeders
+    1 and 2 holding every blob (``sizes``: blob id -> bytes), dest 3
+    assigned the first ``cut`` layer blobs and dest 4 the rest with the
+    head; a ``nodes`` mesh axis of one slot per node.  The dests' NIC is
+    twice a seeder's, as phase 6's, so the max-flow plan may need both
+    seeders."""
+    held = {"2": {str(lid): {"LayerSize": n} for lid, n in sizes.items()}}
+    head = max(sizes)
+    nodes = [{"Id": leader, "Addr": str(leader), "IsLeader": True,
               "NetworkBW": SEEDER_NIC, "InitialLayers": {}}]
     nodes += [{"Id": i, "Addr": str(i), "NetworkBW": SEEDER_NIC,
                "InitialLayers": held} for i in (1, 2)]
     nodes += [{"Id": i, "Addr": str(i), "NetworkBW": DEST_NIC,
                "InitialLayers": {}} for i in (3, 4)]
-    d = {"Model": cfg.name, "ModelSeed": args.seed, "Nodes": nodes,
+    d = {"Model": model, "ModelSeed": seed, "Nodes": nodes,
          "Assignment": {"3": {str(b): {} for b in range(cut)},
                         "4": {str(b): {} for b in range(cut, head + 1)}},
-         "Mesh": {"AxisNames": ["nodes"], "AxisSizes": [5],
+         "Mesh": {"AxisNames": ["nodes"], "AxisSizes": [len(nodes)],
                   "PipelineAxis": "nodes", "Fabric": True}}
     if codec != "raw":
         d["ModelCodec"] = codec
-    return cfg_mod.Config.from_json(d)
+    return d
 
 
-def fabric_round(cfg, args, fa, prompt, blobs, cut, codec="raw", hook=None):
-    """One ``cli.podrun.run_pod`` of phase 12's topology on the card:
-    seeders 1 and 2 hold ``blobs`` (one shared host copy), ``--gen``
-    greedy tokens after ``prompt``.  Every message the in-memory transport
-    carries is recorded; the kernel counts and trace counters are zeroed
-    just before the run and read when ``hook`` is called, before the
-    nodes close.  ``hook(leader, receivers, placement)`` returns extra
-    fields for the result."""
+def fabric_conf(cfg, args, blobs, cut, codec="raw", leader=0):
+    """``fabric_conf_dict`` of ``blobs`` as ``cli.podrun`` reads it."""
+    from distributed_llm_dissemination_tpu_torch.core import config as cfg_mod
+
+    return cfg_mod.Config.from_json(fabric_conf_dict(
+        cfg.name, args.seed, {lid: len(b) for lid, b in blobs.items()}, cut,
+        codec, leader))
+
+
+def fabric_round(cfg, args, fa, prompt, blobs, cut, codec="raw", hook=None,
+                 leader=0, device="cuda:0"):
+    """One ``cli.podrun.run_pod`` of phase 12's topology: seeders 1 and 2
+    hold ``blobs`` (one shared host copy), ``--gen`` greedy tokens after
+    ``prompt``.  ``device``: where the mesh slots run (phase 12: every
+    slot on card 0; phase 16b: None, the host's cards in order).  Every
+    message the in-memory transport carries is recorded; the kernel
+    counts and trace counters are zeroed just before the run and read
+    when ``hook`` is called, before the nodes close.  ``hook(leader,
+    receivers, placement)`` returns extra fields for the result."""
     import torch
 
     from distributed_llm_dissemination_tpu_torch.cli.podrun import run_pod
@@ -2322,11 +2373,18 @@ def fabric_round(cfg, args, fa, prompt, blobs, cut, codec="raw", hook=None):
         out.update(counts={
             "attention": dict(fa.launches_by_kernel),
             "attention_plain": fa.plain_calls,
+            "attention_by_device": {d: dict(n) for d, n in
+                                    fa.launches_by_device.items()},
             "dequant": dict(dq.launches_by_kernel),
             "dequant_plain": dict(dq.plain_calls),
+            "dequant_by_device": {d: dict(n) for d, n in
+                                  dq.launches_by_device.items()},
             "counters": trace.counter_totals(),
             "phases": trace.phase_totals(),
-            "peak": torch.cuda.max_memory_allocated()})
+            "peak": torch.cuda.max_memory_allocated(),
+            "peak_by_card": {
+                f"cuda:{k}": torch.cuda.max_memory_allocated(k)
+                for k in range(torch.cuda.device_count())}})
         dests = {r.node.my_id: r for r in receivers if r.node.my_id in (3, 4)}
         out.update(dests=dests, leader=leader, placement=placement,
                    warm={i: [rec for rec, _ in r.precompile_records]
@@ -2337,17 +2395,19 @@ def fabric_round(cfg, args, fa, prompt, blobs, cut, codec="raw", hook=None):
     threads_before = set(threading.enumerate())
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(k)
     inmem.InmemTransport.send = spy
     telemetry.reset_run()
     trace.reset_run()
     fa.reset_counts()
     dq.reset_counts()  # the round's counts start here
     try:
-        summary = run_pod(fabric_conf(cfg, args, blobs, cut, codec), mode=3,
-                          timeout=600, gen=args.gen, prompt=prompt[0].tolist(),
+        summary = run_pod(fabric_conf(cfg, args, blobs, cut, codec, leader),
+                          mode=3, timeout=600, gen=args.gen,
+                          prompt=prompt[0].tolist(),
                           initial_layers={1: holdings(), 2: holdings()},
-                          on_delivered=on_delivered)
+                          on_delivered=on_delivered, device=device)
     finally:
         inmem.InmemTransport.send = real_send
         out.pop("dests", None)
@@ -2918,12 +2978,13 @@ SPMD_PROMPT = 16  # the pod serve's boot prompt: zeros (ServeMsg.seq_len)
 SPMD_TIMEOUT_S = 300  # any one node process
 
 
-def spmd_conf(cfg, args, ports):
-    """Phase 14's topology: leader 0 (no layers), seeders 1 and 2 holding
-    every blob, dest 3 assigned the first ``SPMD_CUT`` layer blobs and dest
-    4 the rest, both the head (a process serves from its own store); a
-    ``nodes`` mesh axis of 5 stages, ``Mesh.Fabric`` and a
-    ``Distributed`` section with an ephemeral coordinator."""
+def spmd_conf(cfg, args, ports, seeders=(1, 2), dests=(3, 4)):
+    """Phase 14's topology: leader 0 (no layers), ``seeders`` holding
+    every blob, the first dest assigned the first ``SPMD_CUT`` layer
+    blobs and the second the rest, both the head (a process serves from
+    its own store); a ``nodes`` mesh axis of one stage per node,
+    ``Mesh.Fabric`` and a ``Distributed`` section with an ephemeral
+    coordinator (``ports[-1]``).  Phase 16c: one seeder, dests 2 and 3."""
     from distributed_llm_dissemination_tpu_torch.models import serde
 
     head = serde.head_blob_id(cfg)
@@ -2934,24 +2995,27 @@ def spmd_conf(cfg, args, ports):
               "InitialLayers": {}}]
     nodes += [{"Id": i, "Addr": f"127.0.0.1:{ports[i]}",
                "NetworkBW": SEEDER_NIC, "Sources": {"2": 0},
-               "InitialLayers": held} for i in (1, 2)]
+               "InitialLayers": held} for i in seeders]
     nodes += [{"Id": i, "Addr": f"127.0.0.1:{ports[i]}",
                "NetworkBW": DEST_NIC, "Sources": {"2": 0},
-               "InitialLayers": {}} for i in (3, 4)]
+               "InitialLayers": {}} for i in dests]
+    first, second = dests
     return {"Model": cfg.name, "ModelSeed": args.seed,
             "LayerSize": serde.blob_nbytes(cfg, 0), "Nodes": nodes,
             "Assignment": {
-                "3": {str(b): {} for b in [*range(SPMD_CUT), head]},
-                "4": {str(b): {} for b in range(SPMD_CUT, head + 1)}},
-            "Mesh": {"AxisNames": ["nodes"], "AxisSizes": [5],
+                str(first): {str(b): {} for b in [*range(SPMD_CUT), head]},
+                str(second): {str(b): {} for b in range(SPMD_CUT, head + 1)}},
+            "Mesh": {"AxisNames": ["nodes"], "AxisSizes": [len(nodes)],
                      "PipelineAxis": "nodes", "Fabric": True},
-            "Distributed": {"Coordinator": f"127.0.0.1:{ports[5]}",
+            "Distributed": {"Coordinator": f"127.0.0.1:{ports[-1]}",
                             "CpuCollectives": "gloo"}}
 
 
-def phase_spmd(cfg, args, fa, fab):
-    """The multi-controller fabric, one ``cli.main`` process per node
-    (module docstring, phase 14).  Returns the dests' K1 launches."""
+def spmd_round(cfg, args, fa, blobs, work_name, seeders, dests, backend):
+    """One ``cli.main`` process per node of ``spmd_conf``'s topology
+    (phases 14 and 16c), logs in ``build/<work_name>/``; every check of
+    phase 14, with ``backend`` the one every process must run.  Returns
+    the phase's fields and the dests' K1 launches."""
     import os
     import re
 
@@ -2968,10 +3032,9 @@ def phase_spmd(cfg, args, fa, fab):
     def libraries():
         return {p.name: p.stat().st_mtime_ns for p in BUILD_DIR.glob("*.so")}
 
-    t_phase = time.monotonic()
     # The reference ids: the port's generate on the seeded params from the
     # zero boot prompt, on the card.
-    params = card_params(cfg, serde, args.seed, fab["blobs"])
+    params = card_params(cfg, serde, args.seed, blobs)
     zeros = torch.zeros((1, SPMD_PROMPT), dtype=torch.long, device="cuda")
     want_ids = generate(params, zeros, cfg, args.gen)[0].tolist()
     del params
@@ -2979,9 +3042,11 @@ def phase_spmd(cfg, args, fa, fab):
     torch.cuda.empty_cache()
 
     root = os.path.dirname(os.path.abspath(__file__))
-    work = os.path.join(root, "build", "chip_smoke_spmd")
+    work = os.path.join(root, "build", work_name)
     os.makedirs(work, exist_ok=True)
-    conf = spmd_conf(cfg, args, _free_ports(6))
+    ids = [0, *seeders, *dests]
+    ports = _free_ports(max(ids) + 2)
+    conf = spmd_conf(cfg, args, ports, seeders, dests)
     conf_path = os.path.join(work, "topology.json")
     with open(conf_path, "w") as f:
         json.dump(conf, f)
@@ -2989,15 +3054,16 @@ def phase_spmd(cfg, args, fa, fab):
     node = [sys.executable, "-m",
             "distributed_llm_dissemination_tpu_torch.cli.main",
             "-f", conf_path, "-m", "3"]
-    names = {0: "leader", 1: "seeder1", 2: "seeder2", 3: "dest3",
-             4: "dest4"}
-    argv = {0: ["-gen", str(args.gen)], 1: ["-boot", "none"],
-            2: ["-boot", "none"], 3: [], 4: []}
+    names = {0: "leader", **{i: f"seeder{i}" for i in seeders},
+             **{i: f"dest{i}" for i in dests}}
+    argv = {0: ["-gen", str(args.gen)],
+            **{i: ["-boot", "none"] for i in seeders},
+            **{i: [] for i in dests}}
     procs, files = {}, []
     built = libraries()
     t0 = time.monotonic()
     try:
-        for i in (3, 4, 1, 2, 0):
+        for i in (*dests, *seeders, 0):
             out = open(os.path.join(work, f"{names[i]}.out"), "w")
             err = open(os.path.join(work, f"{names[i]}.err"), "w")
             files.extend((out, err))
@@ -3023,8 +3089,8 @@ def phase_spmd(cfg, args, fa, fab):
         for f in files:
             f.close()
     wall = time.monotonic() - t0
-    # The five processes loaded phase 1's kernel libraries: none rebuilt
-    # or replaced one.
+    # The processes loaded phase 1's kernel libraries: none rebuilt or
+    # replaced one.
     check(libraries() == built and built,
           f"kernel libraries changed under the processes: {built}")
     logs = {i: _log_records(os.path.join(work, f"{names[i]}.err"))
@@ -3037,13 +3103,17 @@ def phase_spmd(cfg, args, fa, fab):
         m = re.search(pat, leader_out)
         check(m is not None, f"the leader printed no {key}: {leader_out!r}")
         printed[key] = float(m.group(1))
-    backends = {_one(recs, "spmd fabric up", names[i])["backend"]
-                for i, recs in logs.items()}
-    check(backends == {"gloo"}, f"backends {backends}")
+    for message in ("process group up", "spmd fabric up"):
+        backends = {_one(recs, message, names[i])["backend"]
+                    for i, recs in logs.items()}
+        check(backends == {backend}, f"{message}: backends {backends}")
+    devices = {names[i]: _one(recs, "spmd fabric up", names[i])["device"]
+               for i, recs in logs.items()}
     head = serde.head_blob_id(cfg)
     g = cfg.n_heads // cfg.n_kv_heads
-    assigned = {3: {*range(SPMD_CUT), head},
-                4: {*range(SPMD_CUT, head), head}}
+    first, second = dests
+    assigned = {first: {*range(SPMD_CUT), head},
+                second: {*range(SPMD_CUT, head), head}}
     members, launches = {}, {name: 0 for name in fa.SOURCES}
     on_transport = {}
     for i, recs in logs.items():
@@ -3084,24 +3154,41 @@ def phase_spmd(cfg, args, fa, fab):
         want[fa.kernel_for(1, g, cfg.dtype)] += (args.gen - 1) * depth
         got = summary["attention_launches_by_kernel"]
         check(got == want, f"{names[i]} launches {got} != {want}")
+        # Every launch on the process's own card.
+        by_dev = summary["attention_launches_by_device"]
+        check(set(by_dev) == {devices[names[i]]}
+              and by_dev[devices[names[i]]] == {k: n for k, n in want.items()
+                                                if n},
+              f"{names[i]} on {devices[names[i]]} launched {by_dev}")
         for name in fa.SOURCES:
             launches[name] += got[name]
         members[names[i]] = dict(
-            layers=depth, decode_s=dec["seconds"],
+            layers=depth, device=devices[names[i]], decode_s=dec["seconds"],
             decode_ms_per_token=dec["seconds"] / args.gen * 1e3,
-            attention_launches=got, tokens_equal_generate=True)
+            attention_launches=got, attention_launches_by_device=by_dev,
+            tokens_equal_generate=True)
     check(not any(on_transport.values()),
           f"layer bytes on the transport: {on_transport}")
-    emit("spmd", config=cfg.name, card=nvidia_smi(), processes=5,
-         backend="gloo", mesh={"nodes": 5},
-         ttd_s=printed["ttd"], ttft_s=printed["ttft"],
-         members=members, tokens=want_ids,
-         layer_bytes_on_transport=on_transport,
-         peak_device_bytes={names[i]: _one(recs, "device memory",
-                                           names[i])["peak_allocated_bytes"]
-                            for i, recs in logs.items()},
-         processes_wall_s=wall, logs=os.path.relpath(work, root),
-         kernel_libraries_reused=sorted(built),
+    fields = dict(
+        processes=len(names), backend=backend, mesh={"nodes": len(names)},
+        devices=devices, ttd_s=printed["ttd"], ttft_s=printed["ttft"],
+        members=members, tokens=want_ids,
+        layer_bytes_on_transport=on_transport,
+        peak_device_bytes={names[i]: _one(recs, "device memory",
+                                          names[i])["peak_allocated_bytes"]
+                           for i, recs in logs.items()},
+        processes_wall_s=wall, logs=os.path.relpath(work, root),
+        kernel_libraries_reused=sorted(built))
+    return fields, launches
+
+
+def phase_spmd(cfg, args, fa, fab):
+    """The multi-controller fabric, one ``cli.main`` process per node
+    (module docstring, phase 14).  Returns the dests' K1 launches."""
+    t_phase = time.monotonic()
+    fields, launches = spmd_round(cfg, args, fa, fab["blobs"],
+                                  "chip_smoke_spmd", (1, 2), (3, 4), "gloo")
+    emit("spmd", config=cfg.name, card=nvidia_smi(), **fields,
          phase_wall_s=time.monotonic() - t_phase)
     return launches
 
@@ -3234,6 +3321,576 @@ def phase_ttd_matrix(fa):
          record=os.path.relpath(out_path, root),
          phase_wall_s=time.monotonic() - t_phase)
     return launches
+
+
+# ------------------------------------------------------------ phase 16
+
+CARDS4 = 4  # the cards phase 16 needs
+ONLY = ("cards4",)  # phases --only can run alone
+# Phase 16b's leader id: above the seeders' and the dests', so the
+# placement's id-order fill of the free stages puts seeders 1 and 2 on the
+# two cards the dests do not use, and the leader (no layers) on slot 4,
+# which repeats card 0.
+CARDS4_LEADER = 5
+CARDS4_PROBE_BYTES = 1 << 30  # the cross-card copy probe
+CARDS4_SEEDERS, CARDS4_DESTS = (1,), (2, 3)  # 16c: one process per card
+CARDS4_TRAIN_STEPS = 3
+CARDS4_TRAIN_SEQ = 2048
+CARDS4_TRAIN_BATCH = 2  # cli.train's default global batch at dp = 1
+CARDS4_TRAIN_TIMEOUT_S = 420  # any one cli.train process
+# 16d: the world of four against the world of one.  The first loss is a
+# forward of the same params and batch: it differs only by the order of
+# the tensor-parallel f32 sums of bf16 products and by bf16 roundings of
+# the partial sums (1e-3 relative, the phase-10 bound between K1 and the
+# plain attention).  Later losses follow AdamW updates of 1.92 G params
+# whose gradients differ the same way, and the differences grow with each
+# step: 1e-2 relative.
+CARDS4_LOSS_REL = (1e-3, 1e-2)
+
+
+def cards4_copy_gbps(src_card, dst_card, nbytes=CARDS4_PROBE_BYTES,
+                     repeats=3):
+    """Best GB/s of a ``nbytes`` copy from one card to another (peer
+    copies where the cards allow them): the ceiling of a cross-card
+    fabric move."""
+    import torch
+
+    src = torch.empty(nbytes, dtype=torch.uint8, device=f"cuda:{src_card}")
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=f"cuda:{dst_card}")
+    best = float("inf")
+    for i in range(repeats + 1):
+        torch.cuda.synchronize(src.device)
+        torch.cuda.synchronize(dst.device)
+        t0 = time.monotonic()
+        dst.copy_(src)
+        torch.cuda.synchronize(src.device)
+        torch.cuda.synchronize(dst.device)
+        if i:  # the first copy enables peer access and warms up
+            best = min(best, time.monotonic() - t0)
+    del src, dst
+    return nbytes / best / 1e9
+
+
+def cards4_kernels(cfg, fa, dq, quant, serde, wire):
+    """16a: each card's nvidia-smi line, the topology and peer-access
+    matrix, the card 0 -> card k copy ceiling, and K1 decode, K1 prefill
+    (bf16), K2 and K3 with their tensors on each card while card 0 is
+    current, each against its plain version at phase 2's and phase 8's
+    tolerances, each launch counted on its tensors' card."""
+    import torch
+
+    n = torch.cuda.device_count()
+    peer = [[i == j or torch.cuda.can_device_access_peer(i, j)
+             for j in range(n)] for i in range(n)]
+    copy = {f"cuda:0->cuda:{k}": cards4_copy_gbps(0, k)
+            for k in range(1, n)}
+    torch.cuda.set_device(0)
+    fa.reset_counts()
+    dq.reset_counts()
+    cases = {}
+    g = cfg.n_heads // cfg.n_kv_heads
+    layer_specs = serde.layer_param_specs(cfg)
+    for k in range(n):
+        dev = torch.device("cuda", k)
+        rec = {}
+        for label, sq, t, q_off in (("decode", 1, 160, 159),
+                                    ("prefill", 128, 128, 0)):
+            r = attention_case(fa, 1, cfg.n_kv_heads, g, sq, t,
+                               cfg.head_dim, q_off, 0, torch.bfloat16,
+                               seed=k, timed=False, device=dev)
+            check(r["kernel"] == label, f"{label} case took {r['kernel']}")
+            rec[label] = {key: r[key] for key in (
+                "max_abs_err_vs_plain", "pv_err_over_bound", "tolerance")}
+        for kind in ("int8", "int4"):
+            r, kern = codec_kernel_case(dq, quant, kind, "layer0",
+                                        wire[kind], layer_specs, cfg.dtype,
+                                        device=dev)
+            check(all(x.device == dev for x in kern),
+                  f"{kind} leaves left card {k}")
+            rec[kind] = {"bit_exact": r["bit_exact"],
+                         "max_abs_err": r["max_abs_err"]}
+            del kern
+        check(torch.cuda.current_device() == 0,
+              f"card {torch.cuda.current_device()} current after card {k}")
+        cases[f"cuda:{k}"] = rec
+    want = {f"cuda:{k}": {"decode": 1, "prefill": 1} for k in range(n)}
+    check(fa.launches_by_device == want,
+          f"K1 launches by card {fa.launches_by_device} != {want}")
+    want = {f"cuda:{k}": {"int8": 1, "int4": 1} for k in range(n)}
+    check(dq.launches_by_device == want,
+          f"K2/K3 launches by card {dq.launches_by_device} != {want}")
+    # The chip machine's nvidia-smi may not read the topology (it has
+    # exited 255 there): its answer is recorded as it came.
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True)
+    cards = subprocess.run(["nvidia-smi", "--query-gpu=index,name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True).stdout
+    return dict(cards=cards.strip().splitlines(),
+                topology={"rc": topo.returncode,
+                          "lines": (topo.stdout + topo.stderr).splitlines()},
+                peer_access=peer, copy_gbps=copy,
+                copy_bytes=CARDS4_PROBE_BYTES, kernels=cases,
+                attention_launches_by_device=dict(fa.launches_by_device),
+                dequant_launches_by_device=dict(dq.launches_by_device))
+
+
+def _cards_of(placement, node):
+    return {str(s.device) for s in placement.devices_for_node(node)}
+
+
+def _dest_boots(receivers, dests=(3, 4)):
+    """Each dest's boot as ``_fabric_checks`` reads it."""
+    return {r.node.my_id: {
+        "kind": r.boot_result.kind, "layers": len(r.boot_result.layer_ids),
+        "device": str(next(iter(r.boot_result.params.values())).device),
+        "via": r.boot_result.via}
+        for r in receivers if r.node.my_id in dests}
+
+
+def cards4_pod(cfg, args, fa, dq, quant, serde, blobs, wire8, prompt,
+               ids_want):
+    """16b: ``cli.podrun.run_pod`` of phase 12's topology with the mesh's
+    slots on the host's cards in order (leader ``CARDS4_LEADER``): the
+    dests' stages on two cards, the seeders on the other two.  A raw
+    round (every blob on its dest's cards byte-exact, no layer byte on the
+    transport, ids equal to one card's ``generate``, K1 counted per
+    card), then a ``ModelCodec`` int8 round whose stage leaves, decoded
+    by K2 on each dest's card, equal the plain decode bit for bit."""
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.runtime.pp_serve import (
+        assemble_pp_params, pod_decode)
+    from distributed_llm_dissemination_tpu_torch.utils import integrity
+
+    dests = (3, 4)
+
+    def raw_hook(leader, receivers, placement):
+        cards = {str(n): sorted(_cards_of(placement, n))
+                 for n in sorted(placement.node_to_stage)}
+        check(_cards_of(placement, 3).isdisjoint(_cards_of(placement, 4)),
+              f"the dests share a card: {cards}")
+        check(all(_cards_of(placement, s).isdisjoint(
+                      _cards_of(placement, 3) | _cards_of(placement, 4))
+                  for s in (1, 2)), f"a seeder on a dest's card: {cards}")
+        exact = 0
+        for r in receivers:
+            i = r.node.my_id
+            if i not in dests:
+                continue
+            for lid, st in placement.layer_to_stage.items():
+                if st != placement.node_to_stage[i]:
+                    continue
+                arr = r.layers[lid].device_array
+                check(arr is not None and arr.devices()
+                      == set(placement.devices_for_node(i)),
+                      f"blob {lid} at dest {i} not on its stage's slots")
+                check(str(arr.device) in _cards_of(placement, i),
+                      f"blob {lid} on {arr.device}, not dest {i}'s card")
+                host = torch.frombuffer(blobs[lid], dtype=torch.uint8)
+                check(torch.equal(arr, host.to(arr.device)),
+                      f"blob {lid} not byte-exact at dest {i}")
+                check(integrity.layer_digest(arr.cpu().numpy())
+                      == integrity.layer_digest(blobs[lid]),
+                      f"blob {lid} digest at dest {i}")
+                exact += 1
+        results = {r.node.my_id: r.boot_result for r in receivers}
+        stores = {r.node.my_id: r.layers for r in receivers
+                  if r.node.my_id in dests}
+        return {"cards": cards, "exact": exact,
+                "boots": _dest_boots(receivers, dests),
+                "assembled": (placement, assemble_pp_params(
+                    cfg, placement, results, stores))}
+
+    out = fabric_round(cfg, args, fa, prompt, blobs, FABRIC_CUT,
+                       hook=raw_hook, leader=CARDS4_LEADER, device=None)
+    want = _fabric_checks(fa, cfg, args, out, blobs, FABRIC_CUT,
+                          both_seeders=True)
+    summary = out["summary"]
+    check(out["exact"] == len(blobs), f"{out['exact']} blobs byte-exact")
+    check(summary["tokens"] == ids_want,
+          f"pod ids {summary['tokens']} != one card's {ids_want}")
+    dest_cards = {c for i in dests for c in out["cards"][str(i)]}
+    by_card = out["counts"]["attention_by_device"]
+    check(set(by_card) == dest_cards,
+          f"K1 ran on {sorted(by_card)}, the dests' cards are "
+          f"{sorted(dest_cards)}")
+    check({k: sum(c.get(k, 0) for c in by_card.values())
+           for k in fa.SOURCES} == want, f"K1 by card {by_card} != {want}")
+    placement, assembled = out.pop("assembled")
+    full = sorted(pod_decode(cfg, placement, {}, {}, args.gen, prompt,
+                             assembled=assembled)[1] for _ in range(REPEATS))
+    one = sorted(pod_decode(cfg, placement, {}, {}, 1, prompt,
+                            assembled=assembled)[1] for _ in range(REPEATS))
+    decode_ms = sorted((f - statistics.median(one)) / (args.gen - 1) * 1e3
+                       for f in full)
+    del placement, assembled
+    total = sum(len(b) for b in blobs.values())
+    raw = dict(ttd_s=summary["ttd_s"], ttft_s=summary.get("ttft_s"),
+               predicted_s=summary.get("predicted_s"),
+               node_cards=out["cards"], bytes=total,
+               gbps_over_ttd=total / summary["ttd_s"] / 1e9,
+               pod_decode_ms_per_token_warm=decode_ms,
+               attention_launches_by_device=by_card,
+               peak_memory_by_card=out["counts"]["peak_by_card"],
+               messages={k: out["sent"].count(k)
+                         for k in sorted(set(out["sent"]))},
+               tokens=summary["tokens"])
+    launches = dict(out["counts"]["attention"])
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plain = _plain_params(cfg, serde, dq, quant, "int8", wire8)
+
+    def int8_hook(leader, receivers, placement):
+        equal = 0
+        for r in receivers:
+            if r.node.my_id not in dests:
+                continue
+            res = r.boot_result
+            for name, stacked in res.params.items():
+                check(str(stacked.device) in _cards_of(placement,
+                                                       r.node.my_id),
+                      f"dest {r.node.my_id}'s {name} on {stacked.device}")
+                for j, lid in enumerate(res.layer_ids):
+                    check(torch.equal(_bits(stacked[j]), _bits(
+                              plain["layers"][name][lid]).to(stacked.device)),
+                          f"dest {r.node.my_id} layer {lid} {name} != "
+                          "the plain decode")
+                    equal += 1
+        return {"leaves_equal_plain": equal,
+                "boots": _dest_boots(receivers, dests),
+                "cards": {str(i): sorted(_cards_of(placement, i))
+                          for i in dests}}
+
+    out = fabric_round(cfg, args, fa, prompt, wire8, FABRIC_CUT,
+                       codec="int8", hook=int8_hook, leader=CARDS4_LEADER,
+                       device=None)
+    del plain
+    _fabric_checks(fa, cfg, args, out, wire8, FABRIC_CUT)
+    k2_cards = out["counts"]["dequant_by_device"]
+    dest_cards = {c for cs in out["cards"].values() for c in cs}
+    check(set(k2_cards) == dest_cards
+          and all(c.get("int8", 0) > 0 for c in k2_cards.values()),
+          f"K2 ran on {k2_cards}, the dests' cards are {sorted(dest_cards)}")
+    check(not any(out["counts"]["dequant_plain"].values()),
+          f"plain dequant ran: {out['counts']['dequant_plain']}")
+    check(out["leaves_equal_plain"] == cfg.n_layers * len(
+        serde.layer_param_specs(cfg)), f"{out['leaves_equal_plain']} leaves")
+    check(out["summary"]["tokens"] is not None, "no int8 pod ids")
+    int8 = dict(ttd_s=out["summary"]["ttd_s"],
+                wire_bytes=sum(len(b) for b in wire8.values()),
+                dequant_launches_by_device=k2_cards,
+                attention_launches_by_device=out["counts"][
+                    "attention_by_device"],
+                leaves_equal_plain=out["leaves_equal_plain"],
+                tokens=out["summary"]["tokens"])
+    k2 = out["counts"]["dequant"]["int8"]
+    for name, n in out["counts"]["attention"].items():
+        launches[name] += n
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Phase 12's gather leg across the cards: layer blob 0's int8 wire
+    # form in one shard per card, gathered over the slots (peer copies),
+    # decoded on the gathered tensor's card by K2.
+    from distributed_llm_dissemination_tpu_torch.core.types import (
+        shard_range, shard_specs_for)
+    from distributed_llm_dissemination_tpu_torch.parallel import collectives
+    from distributed_llm_dissemination_tpu_torch.parallel.mesh import (
+        device_slots)
+
+    n = torch.cuda.device_count()
+    blob = bytes(wire8[0])
+    parts = [(k, blob[shard_range(sp, len(blob))[0]:
+                      sum(shard_range(sp, len(blob)))])
+             for k, sp in enumerate(shard_specs_for(n))]
+    slots = device_slots(n)
+    check(len({str(d) for d in slots}) == n, f"gather slots {slots}")
+    dq.reset_counts()
+    t0 = time.monotonic()
+    got, leaves = collectives.gather_byte_shards(
+        parts, len(blob), verify_digest=integrity.layer_digest(blob),
+        codec="int8", decode=(cfg, 0), devices=slots)
+    for d in slots:
+        torch.cuda.synchronize(d)
+    gather_s = time.monotonic() - t0
+    check(got == blob, "gathered wire bytes differ")
+    check(sum(dq.launches_by_kernel.values()) == 1
+          and not dq.plain_calls["int8"],
+          f"gather decode launches {dict(dq.launches_by_kernel)}")
+    host = quant.decode_blob_host(cfg, 0, blob, "int8")
+    for name, _ in serde.blob_specs(cfg, 0):
+        a = leaves[name][0]
+        check(a.device.type == "cuda", f"leaf {name} not on a card")
+        check(torch.equal(a.cpu().view(torch.int16),
+                          host[name].view(torch.int16)),
+              f"gathered leaf {name} differs from the host decode")
+    gather = dict(shards=n, slots=[str(d) for d in slots],
+                  wire_bytes=len(blob), seconds=gather_s,
+                  dequant_launches_by_device=dict(dq.launches_by_device),
+                  leaves_equal_host_decode=True)
+    del leaves
+    return dict(raw=raw, int8=int8, gather=gather), launches, k2 + 1
+
+
+def _rank_records(path, message):
+    return [r for r in _log_records(path) if r.get("message") == message]
+
+
+def cards4_train(cfg, args, fa, serde, blobs):
+    """16d: ``cli.train -steps 3 -seq 2048`` in a world of four processes
+    (one per card, nccl; rank 0 disseminates, then broadcasts), then the
+    same in a world of one on card 0.  Every rank's shards equal the
+    delivered params sliced by its coordinates (digests of every leaf,
+    ``-params-digest``), the one-rank run's params equal them whole, and
+    the losses agree within ``CARDS4_LOSS_REL``."""
+    import os
+
+    from distributed_llm_dissemination_tpu_torch.cli import train as tcli
+    from distributed_llm_dissemination_tpu_torch.models import sharded
+    from distributed_llm_dissemination_tpu_torch.models.train_ckpt import (
+        _Coords)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "chip_smoke_cards4")
+    os.makedirs(work, exist_ok=True)
+    head = serde.head_blob_id(cfg)
+    conf = {"Model": cfg.name, "ModelSeed": args.seed,
+            "Nodes": [{"Id": 0, "Addr": "0", "IsLeader": True,
+                       "NetworkBW": SEEDER_NIC, "Sources": {"1": 0},
+                       "InitialLayers": {"1": {str(b): {}
+                                               for b in range(head + 1)}}},
+                      {"Id": 1, "Addr": "1", "NetworkBW": DEST_NIC,
+                       "Sources": {"1": 0}, "InitialLayers": {}}],
+            "Assignment": {"1": {str(b): {} for b in range(head + 1)}},
+            "Mesh": {"AxisNames": ["nodes"], "AxisSizes": [2],
+                     "PipelineAxis": "nodes", "Fabric": True}}
+    conf_path = os.path.join(work, "train.json")
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    argv = [sys.executable, "-m",
+            "distributed_llm_dissemination_tpu_torch.cli.train",
+            "-f", conf_path, "-steps", str(CARDS4_TRAIN_STEPS),
+            "-seq", str(CARDS4_TRAIN_SEQ), "-batch", str(CARDS4_TRAIN_BATCH),
+            "-params-digest"]
+
+    def world(n):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK",
+                            "MASTER_ADDR", "MASTER_PORT")}
+        env["PYTHONPATH"] = root
+        if n > 1:
+            env.update(WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(_free_ports(1)[0]))
+        procs, files = [], []
+        t0 = time.monotonic()
+        try:
+            for r in range(n):
+                base = os.path.join(work, f"world{n}_rank{r}")
+                out, err = open(base + ".out", "w"), open(base + ".err", "w")
+                files.extend((out, err))
+                renv = dict(env, RANK=str(r), LOCAL_RANK=str(r)) if n > 1 \
+                    else env
+                procs.append(subprocess.Popen(argv, stdout=out, stderr=err,
+                                              env=renv, cwd=root))
+            deadline = time.monotonic() + CARDS4_TRAIN_TIMEOUT_S
+            for r, p in enumerate(procs):
+                try:
+                    rc = p.wait(timeout=max(1.0,
+                                            deadline - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    raise RuntimeError(
+                        f"chip_smoke check failed: world {n} rank {r} still "
+                        f"running after {CARDS4_TRAIN_TIMEOUT_S} s") from None
+                with open(os.path.join(work, f"world{n}_rank{r}.err")) as f:
+                    tail = f.read()[-3000:]
+                check(rc == 0, f"world {n} rank {r} exited {rc}:\n{tail}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in files:
+                f.close()
+        wall = time.monotonic() - t0
+        ranks = []
+        for r in range(n):
+            base = os.path.join(work, f"world{n}_rank{r}")
+            placed = _rank_records(base + ".err", "training params placed")
+            ran = _rank_records(base + ".err", "training ran")
+            check(len(placed) == 1 and len(ran) == 1,
+                  f"world {n} rank {r}: {len(placed)} placed, {len(ran)} "
+                  "ran records")
+            with open(base + ".out") as f:
+                lines = [x for x in f.read().splitlines() if x.strip()]
+            summary = json.loads(lines[-1]) if r == 0 else None
+            check(r != 0 or "final_step" in summary,
+                  f"world {n}: no summary from rank 0: {lines[-3:]}")
+            ranks.append({"placed": placed[0], "ran": ran[0],
+                          "summary": summary})
+        return ranks, wall
+
+    four, four_wall = world(CARDS4)
+    one, one_wall = world(1)
+    # The delivered params (the seeded blobs, the JAX package's bytes),
+    # whole and as each rank of the four-rank mesh keeps them.
+    full = dict(sharded.tree_leaves(serde.params_from_blobs(cfg, blobs)))
+    specs = dict(sharded.tree_leaves(sharded.param_specs(cfg)))
+    sizes = sharded.factor_mesh_axes(CARDS4, cfg)
+    check(four[0]["summary"]["mesh"] == sizes and sizes["tp"] == 2
+          and sizes["pp"] == 2, f"mesh {four[0]['summary']['mesh']}")
+    check(one[0]["placed"]["digests"] == tcli.params_digests(
+              sharded.tree_unflatten(full.items())),
+          "the one-rank run's params differ from the delivered params")
+    for r, rank in enumerate(four):
+        view = _Coords(sizes, r)
+        want = tcli.params_digests(sharded.tree_unflatten(
+            (p, t[sharded.shard_slices(t.shape, specs[p], view)])
+            for p, t in full.items()))
+        check(rank["placed"]["rank"] == r
+              and rank["placed"]["digests"] == want,
+              f"rank {r}'s shards differ from the one-rank params' slices")
+    del full
+    l4, l1 = four[0]["summary"]["losses"], one[0]["summary"]["losses"]
+    check(len(l4) == len(l1) == CARDS4_TRAIN_STEPS, f"losses {l4} / {l1}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(l4, l1)]
+    check(rel[0] <= CARDS4_LOSS_REL[0]
+          and all(x <= CARDS4_LOSS_REL[1] for x in rel[1:]),
+          f"losses {l4} against one rank's {l1}")
+    s4, s1 = four[0]["summary"], one[0]["summary"]
+    check(s4["ttd_s"] > 0 and s1["ttd_s"] > 0, "no dissemination TTD")
+    # K1: every rank launched the prefill on its own card only.  A rank
+    # holds n_layers / pp layers and runs them once per pipeline hop, pp
+    # hops a step (the JAX package's sequential fill, models/sharded.py
+    # ``_local_loss``), so its count equals the one-rank run's.
+    one_prefill = one[0]["ran"]["attention_launches_by_kernel"]["prefill"]
+    per_card = {}
+    for r, rank in enumerate(four):
+        by_dev = rank["ran"]["attention_launches_by_device"]
+        check(set(by_dev) == {f"cuda:{r}"},
+              f"rank {r} launched K1 on {sorted(by_dev)}")
+        n = by_dev[f"cuda:{r}"].get("prefill", 0)
+        check(n == one_prefill,
+              f"rank {r}: {n} prefill launches, one rank {one_prefill}")
+        per_card[f"cuda:{r}"] = n / CARDS4_TRAIN_STEPS
+    tokens = CARDS4_TRAIN_BATCH * CARDS4_TRAIN_SEQ
+    return dict(
+        steps=CARDS4_TRAIN_STEPS, seq=CARDS4_TRAIN_SEQ, mesh=sizes,
+        tokens_per_step=tokens,
+        world4=dict(losses=l4, step_s=s4["step_s"],
+                    ms_per_step_after_first=statistics.median(
+                        s4["step_s"][1:]) * 1e3,
+                    tokens_per_s=tokens / statistics.median(s4["step_s"][1:]),
+                    ttd_s=s4["ttd_s"], broadcast_s=s4.get("broadcast_s"),
+                    peak_memory_by_card={
+                        f"cuda:{r}": rank["ran"]["peak_allocated_bytes"]
+                        for r, rank in enumerate(four)},
+                    prefill_launches_per_step_by_card=per_card,
+                    processes_wall_s=four_wall),
+        world1=dict(losses=l1, step_s=s1["step_s"],
+                    ms_per_step_after_first=statistics.median(
+                        s1["step_s"][1:]) * 1e3,
+                    tokens_per_s=tokens / statistics.median(s1["step_s"][1:]),
+                    ttd_s=s1["ttd_s"],
+                    peak_memory=one[0]["ran"]["peak_allocated_bytes"],
+                    prefill_launches_per_step=one_prefill
+                    / CARDS4_TRAIN_STEPS,
+                    processes_wall_s=one_wall),
+        loss_rel_diff=rel, loss_rel_tolerance=list(CARDS4_LOSS_REL),
+        shards_equal_delivered_params=True,
+        logs=os.path.relpath(work, root)), four
+
+
+def phase_cards4(cfg, args, fa, dq, fab=None):
+    """Phase 16 (module docstring): the port across four cards of one
+    host.  ``fab``: phase 3's blobs and phase 8's int8 wire blobs when the
+    earlier phases ran (else made here).  Returns the K1 and K2 launches
+    of its paths, summed over the cards."""
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.models import quant, serde
+    from distributed_llm_dissemination_tpu_torch.models.generate import (
+        generate)
+
+    t_phase = time.monotonic()
+    torch.cuda.set_device(0)
+    if fab is None:
+        blobs, _ = fabricate(cfg, serde, args.seed)
+        wire8 = None
+    else:
+        blobs = fab["blobs"]
+        wire8 = fab.get("int8", {}).get("wire")
+    t0 = time.monotonic()
+    if wire8 is None:
+        wire8 = {lid: quant.encode_blob(cfg, lid, bytes(b), "int8")
+                 for lid, b in blobs.items()}
+    wire = {"int8": wire8[0],
+            "int4": quant.encode_blob(cfg, 0, bytes(blobs[0]), "int4")}
+    encode_s = time.monotonic() - t0
+    # 16a
+    t0 = time.monotonic()
+    a = cards4_kernels(cfg, fa, dq, quant, serde, wire)
+    a["wall_s"] = time.monotonic() - t0
+    # One card's reference: phase 3's prompt and the seeded params'
+    # greedy ids and warm decode on card 0.
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    prompt = torch.randint(0, cfg.vocab, (1, args.prompt), generator=gen,
+                           device="cuda")
+    params = card_params(cfg, serde, args.seed, blobs)
+    ids_want = generate(params, prompt, cfg, args.gen)[0].tolist()
+    _, one_card_ms = warm_serve(cfg, params, prompt, args.gen, REPEATS)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 16b
+    t0 = time.monotonic()
+    fa.reset_counts()
+    dq.reset_counts()
+    b, k1_pod, k2_pod = cards4_pod(cfg, args, fa, dq, quant, serde, blobs,
+                                   wire8, prompt, ids_want)
+    b["raw"]["one_card_decode_ms_per_token_warm"] = one_card_ms
+    b["raw"]["copy_probe_gbps"] = a["copy_gbps"]
+    b["wall_s"] = time.monotonic() - t0
+    # 16c
+    t0 = time.monotonic()
+    c, k1_spmd = spmd_round(cfg, args, fa, blobs, "chip_smoke_cards4_spmd",
+                            CARDS4_SEEDERS, CARDS4_DESTS, "nccl")
+    c["wall_s"] = time.monotonic() - t0
+    # 16d
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, ranks = cards4_train(cfg, args, fa, serde, blobs)
+    d["wall_s"] = time.monotonic() - t0
+    k1_train = {name: sum(r["ran"]["attention_launches_by_kernel"].get(
+        name, 0) for r in ranks) for name in fa.SOURCES}
+    launches = {name: k1_pod[name] + k1_spmd[name] + k1_train[name]
+                for name in fa.SOURCES}
+    by_device = {"attention": {}, "dequant": {}}
+    for kind, tables in (
+            ("attention", (b["raw"]["attention_launches_by_device"],
+                           b["int8"]["attention_launches_by_device"],
+                           *(m["attention_launches_by_device"]
+                             for m in c["members"].values()),
+                           *(r["ran"]["attention_launches_by_device"]
+                             for r in ranks))),
+            ("dequant", (b["int8"]["dequant_launches_by_device"],))):
+        for table in tables:
+            for dev, per in table.items():
+                tally = by_device[kind].setdefault(dev, {})
+                for name, n in per.items():
+                    tally[name] = tally.get(name, 0) + n
+    emit("cards4", ran=True, config=cfg.name, card=nvidia_smi(),
+         cards=torch.cuda.device_count(), encode_s=encode_s,
+         kernels_and_cards=a, one_controller=b, nccl_processes=c,
+         training=d, attention_launches=launches,
+         dequant_launches={"int8": k2_pod},
+         launches_by_device=by_device,
+         phase_wall_s=time.monotonic() - t_phase)
+    return launches, k2_pod
 
 
 # ------------------------------------------------------------ phase 9
@@ -4327,7 +4984,15 @@ def main() -> int:
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--long-prompt", type=int, default=2048)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after the env and "
+                         "kernel build phase, alone: " + ", ".join(ONLY))
     args = ap.parse_args()
+    only = [p for p in args.only.split(",") if p]
+    if any(p not in ONLY for p in only):
+        print(f"chip_smoke: --only takes {', '.join(ONLY)}; got "
+              f"{args.only!r}", file=sys.stderr)
+        return 2
 
     import torch
 
@@ -4341,7 +5006,20 @@ def main() -> int:
 
     t_script = time.monotonic()
     cfg = CONFIGS[args.config]
+    cards = torch.cuda.device_count()
+    if "cards4" in only and cards < CARDS4:
+        print(f"chip_smoke: --only cards4 needs {CARDS4} cards; this host "
+              f"has {cards}", file=sys.stderr)
+        return 2
     card = phase_env(cuda_build, fa, dq)
+    if only:
+        phase_cards4(cfg, args, fa, dq)
+        emit("script", wall_s=time.monotonic() - t_script, only=only)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": cards}}), flush=True)
+        return 0
     case_stats, mixes, full_f32 = phase_kernel(fa, cfg, args.prompt, args.gen,
                                                args.long_prompt)
     res, prompt, launches, fab = phase_main(cfg, args, fa)
@@ -4360,6 +5038,11 @@ def main() -> int:
                                               raw_ttd_s)
     pods_launches, pods_k2 = phase_pods(cfg, args, fa, fab, prompt)
     spmd_launches = phase_spmd(cfg, args, fa, fab)
+    cards4_k1 = cards4_k2 = None
+    if cards >= CARDS4:
+        cards4_k1, cards4_k2 = phase_cards4(cfg, args, fa, dq, fab)
+    else:
+        emit("cards4", ran=False, cards=cards)
     del fab["int8"]
     hf_launches, f32_launches = phase_hf(cfg, args, fa, fab, prompt)
     f16_launches = phase_hf_f16(cfg, args, fa, fab, prompt)
@@ -4371,12 +5054,14 @@ def main() -> int:
              "moe_raw": moe_launches["raw"], "moe_int8": moe_launches["int8"],
              "train": train_launches, "swap": swap_launches,
              "fabric": fabric_launches, "pods": pods_launches,
-             "spmd": spmd_launches, "ttd_matrix": ttd_launches}
+             "spmd": spmd_launches, "ttd_matrix": ttd_launches,
+             "cards4": cards4_k1 or dict.fromkeys(fa.SOURCES)}
     for kind, st in codec_stats.items():
         st["launches"] = {"codec": st["launches"],
                           "moe_int8": moe_k2 if kind == "int8" else 0}
     codec_stats["int8"]["launches"]["fabric"] = fabric_k2
     codec_stats["int8"]["launches"]["pods"] = pods_k2
+    codec_stats["int8"]["launches"]["cards4"] = cards4_k2
 
     main_mix = f"prompt{args.prompt}"
     entries = [kernel_entry(fa, name, paths, case_stats, mixes, main_mix)

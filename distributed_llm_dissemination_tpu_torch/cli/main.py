@@ -1047,6 +1047,7 @@ def run_receiver(args, conf: cfg.Config, node: Node, layers,
     from ..utils import telemetry, trace
 
     attention = dict(attention_launches=0, attention_launches_by_kernel={},
+                     attention_launches_by_device={},
                      attention_plain_calls=0)
     if device is not None:
         from ..ops import flash_attention
@@ -1054,6 +1055,9 @@ def run_receiver(args, conf: cfg.Config, node: Node, layers,
         attention = dict(attention_launches=flash_attention.launches,
                          attention_launches_by_kernel=dict(
                              flash_attention.launches_by_kernel),
+                         attention_launches_by_device={
+                             d: dict(n) for d, n in
+                             flash_attention.launches_by_device.items()},
                          attention_plain_calls=flash_attention.plain_calls)
     ulog.log.info("receiver summary", counters=trace.counter_totals(),
                   links=telemetry.snapshot().get("links", {}), **attention)

@@ -3,7 +3,7 @@
 Port of the JAX package's ``cli/podrun.py``.  One process hosts ALL the
 topology's nodes (control plane on the in-memory transport), maps each
 node to a pipeline stage of the configured slot mesh
-(``parallel.mesh.fabric_placement``; every slot on ``-device``), and lets
+(``parallel.mesh.fabric_placement``), and lets
 every scheduled layer transfer ride the device fabric
 (``parallel/fabric.py``): seeders upload their planned byte ranges to
 their own stage's slot, destinations ingest them device to device.  No
@@ -16,8 +16,14 @@ Prints the reference's "Time to deliver" and one machine-readable JSON
 summary line.  With a ``Model`` in the config the assignees boot their
 stages from the delivered blobs, the pod serves one pipelined forward
 (``runtime.pp_serve.pod_forward``) and, with ``-gen N``, decodes N greedy
-tokens across the stages (``pod_decode``).  Without ``-device`` it runs
-on the CUDA card and raises where there is none.
+tokens across the stages (``pod_decode``).
+
+Without ``-device`` the mesh's slots take the host's CUDA cards in order
+(slot i on card ``i mod n_cards``, ``parallel.mesh.slot_devices``), so
+stages on different cards hand their bytes over as peer copies; it
+raises on a host without a card.  ``-device cuda:k`` pins every slot to
+card k, ``-device cpu`` runs on the CPU.  Each node fabricates its
+seeded layers on its own slot's device.
 """
 
 from __future__ import annotations
@@ -72,8 +78,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="after a servable pipeline boot, greedy-decode "
                         "this many tokens across the pod (KV-cached)")
     p.add_argument("-device", type=str, default=None,
-                   help="the device every mesh slot runs on (default: the "
-                        "CUDA card; 'cpu' for a CPU run)")
+                   help="pin every mesh slot to this device ('cuda:k', or "
+                        "'cpu' for a CPU run; default: slot i on the "
+                        "host's CUDA card i mod n_cards)")
     p.add_argument("-report", type=str, default="",
                    help="write RUN_REPORT.{json,md} at this path/prefix "
                         "when the run completes (cli/report.py)")
@@ -96,7 +103,9 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
             initial_layers=None) -> Dict[str, float]:
     """Drive one full pod dissemination; returns the timing summary.
 
-    ``device``: where every mesh slot runs (None = the CUDA card).
+    ``device``: where the mesh slots run: None (or ``"cuda"``) = the
+    host's cards in order, slot i on card ``i mod n_cards``;
+    ``"cuda:k"`` or ``"cpu"`` pins every slot there.
     ``prompt``: token ids for the pod's forward and decode (default 16
     zeros, the boot prompt).  ``initial_layers``: ``{node_id: layers}``
     stores used instead of fabricating those nodes' initial layers from
@@ -108,23 +117,27 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
     import torch
 
     from ..parallel.fabric import FabricPlane
-    from ..parallel.mesh import fabric_placement, mesh_from_conf
-    from ..utils.device import resolve_device
+    from ..parallel.mesh import device_slots, fabric_placement, mesh_from_conf
 
-    dev = resolve_device(device)
     n_slots = 1
     for size in conf.mesh.axis_sizes:
         n_slots *= int(size)
-    mesh = mesh_from_conf(conf.mesh, [dev] * n_slots)
+    slot_devs = device_slots(n_slots, device)
+    mesh = mesh_from_conf(conf.mesh, slot_devs)
     node_ids = [nc.id for nc in conf.nodes]
     placement = fabric_placement(node_ids, conf.assignment, mesh,
                                  conf.mesh.pipeline_axis)
+    # Each node's own device: its stage's first slot's.
+    node_dev = {n: placement.devices_for_node(n)[0].device for n in node_ids}
+    dev_name = (str(slot_devs[0]) if len(set(slot_devs)) == 1
+                else slot_devs[0].type)
     fabric = FabricPlane()
-    ulog.log.info("pod fabric up", device=str(dev),
+    ulog.log.info("pod fabric up", device=dev_name,
                   mesh={n: s for n, s in zip(conf.mesh.axis_names,
                                              conf.mesh.axis_sizes)},
                   stages={str(n): s
-                          for n, s in placement.node_to_stage.items()})
+                          for n, s in placement.node_to_stage.items()},
+                  node_devices={str(n): str(d) for n, d in node_dev.items()})
 
     transports = {
         nc.id: InmemTransport(str(nc.id),
@@ -149,7 +162,7 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
                                            model=conf.model,
                                            model_seed=conf.model_seed,
                                            model_codec=conf.model_codec,
-                                           device=dev)
+                                           device=node_dev[nc.id])
             node = Node(nc.id, leader_conf.id, transports[nc.id])
             if nc.id == leader_conf.id:
                 kwargs = dict(expected_nodes=set(node_ids),
@@ -190,7 +203,7 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
         tel_snap = utelemetry.snapshot()
         summary = {"mode": mode, "ttd_s": round(ttd, 6),
                    "nodes": len(node_ids), "fabric": True,
-                   "device": str(dev),
+                   "device": dev_name,
                    "collective_cache": plan_cache.stats(),
                    "plan_phases": utrace.phase_totals(),
                    "telemetry": {"counters": tel_snap.get("counters"),

@@ -22,13 +22,22 @@ The topology's ``Model`` section names the model.
 The world is ``torch.distributed``'s: a ``WORLD_SIZE`` above 1 in the
 environment (as ``torchrun`` sets it, with ``RANK``, ``LOCAL_RANK`` and
 ``MASTER_ADDR``/``MASTER_PORT``) initialises the default process group
-from it; otherwise the world is this one process.  ``-device`` picks the
-device (None = the CUDA card, ``cuda:LOCAL_RANK`` in a larger world); a
-machine without a card raises unless ``-device cpu`` is given.  The
-dissemination runs in a world of one process (it addresses the whole
-pod from one controller): a larger world starts with ``-resume`` from a
-checkpoint that a one-process run saved with ``-ckpt``, restored onto
-its own mesh.
+from it (``cpu:gloo,cuda:nccl`` on cards, after making
+``cuda:LOCAL_RANK`` the current card; gloo on the CPU); otherwise the
+world is this one process.  ``-device`` picks the device (None = the
+CUDA card, ``cuda:LOCAL_RANK`` in a larger world); a machine without a
+card raises unless ``-device cpu`` is given.  In a larger world without
+``-resume``, rank 0 alone disseminates (the pod addresses its own card:
+``-device`` there is its rank's device), then broadcasts every leaf of
+the delivered params to every rank on the default group, and each rank
+keeps its shard.  Rank 0 prints the summary.
+
+``-params-digest`` logs, on every rank, a ``"training params placed"``
+record: the rank's mesh coordinates and a digest of each local shard as
+training starts (``utils.integrity.layer_digest``), so a run's shards
+can be held against another world's.  The ``"training ran"`` record
+gives each rank's step times and, on a card, its peak memory and its
+attention launches by kernel and card.
 """
 
 from __future__ import annotations
@@ -108,13 +117,72 @@ def _init_world(device):
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1 and not dist.is_initialized():
         dev = torch.device(device or "cuda")
-        backend = "nccl" if dev.type == "cuda" else "gloo"
+        if dev.type == "cuda":
+            # NCCL binds a rank to the current card: this rank's own.
+            if dev.index is None:
+                dev = torch.device(
+                    "cuda", int(os.environ.get("LOCAL_RANK", "0")))
+            torch.cuda.set_device(dev)
+            backend = "cpu:gloo,cuda:nccl"
+        else:
+            backend = "gloo"
         dist.init_process_group(backend, init_method="env://")
     if dist.is_available() and dist.is_initialized():
         world = dist.get_world_size()
         if device is None:
             device = f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
     return world, resolve_device(device)
+
+
+def _params_from_rank0(conf, timeout: float, device):
+    """A world of several ranks: rank 0 disseminates on its own device
+    (``_params_from_dissemination``), then every leaf goes from rank 0 to
+    every rank with ``torch.distributed.broadcast`` on the default group
+    (on ``device``: the card under nccl, the CPU under gloo).  Returns
+    (params, cfg, timings) on every rank; the timings are rank 0's."""
+    import torch
+    import torch.distributed as dist
+
+    from ..models.sharded import tree_leaves, tree_unflatten
+
+    if dist.get_rank() == 0:
+        params, mcfg, summary = _params_from_dissemination(conf, timeout,
+                                                           device)
+        leaves = list(tree_leaves(params))
+        meta = [summary, [(path, tuple(t.shape), str(t.dtype).split(".")[-1])
+                          for path, t in leaves]]
+    else:
+        mcfg = _model_config(conf.model)
+        meta = [None, None]
+    t0 = time.monotonic()
+    dist.broadcast_object_list(meta, src=0)
+    summary, specs = meta
+    if dist.get_rank() == 0:
+        tensors = [t.to(device).contiguous() for _, t in leaves]
+        del params, leaves
+    else:
+        tensors = [torch.empty(shape, dtype=getattr(torch, dtype),
+                               device=device)
+                   for _, shape, dtype in specs]
+    for t in tensors:
+        # Bytes, not values: every dtype moves alike on gloo and NCCL.
+        dist.broadcast(t.reshape(-1).view(torch.uint8), src=0)
+    summary = dict(summary, broadcast_s=round(time.monotonic() - t0, 3))
+    return (tree_unflatten((path, t) for (path, _, _), t
+                           in zip(specs, tensors)), mcfg, summary)
+
+
+def params_digests(params) -> dict:
+    """``{leaf path: digest of its bytes}`` (``utils.integrity``)."""
+    import torch
+
+    from ..models.sharded import tree_leaves
+    from ..utils import integrity
+
+    return {"/".join(path): integrity.layer_digest(
+                t.detach().contiguous().reshape(-1).view(torch.uint8)
+                .cpu().numpy())
+            for path, t in tree_leaves(params)}
 
 
 def main(argv=None) -> int:
@@ -136,6 +204,9 @@ def main(argv=None) -> int:
                    help="dissemination timeout seconds")
     p.add_argument("-device", type=str, default=None,
                    help="torch device (default: the CUDA card)")
+    p.add_argument("-params-digest", action="store_true",
+                   help="log a digest of every local parameter shard as "
+                        "training starts (\"training params placed\")")
     p.add_argument("-v", action="store_true")
     args = p.parse_args(argv)
     ulog.configure(node="train", verbose=args.v)
@@ -145,12 +216,6 @@ def main(argv=None) -> int:
         raise SystemExit("training needs a Model section in the topology")
     if args.resume and not args.ckpt:
         raise SystemExit("-resume needs -ckpt")
-    if not args.resume and int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        # Every rank would run the whole dissemination onto its own card.
-        raise SystemExit(
-            "training without -resume disseminates from one controller: "
-            "run it in a world of one process with -ckpt, then -resume "
-            "in the larger world")
 
     from ..models.sharded import (
         build_adamw_train_step,
@@ -173,25 +238,49 @@ def main(argv=None) -> int:
         summary: dict = {"resumed_step": int(opt["step"])}
         log.info("training state restored", step=summary["resumed_step"])
     else:
-        params, mcfg, summary = _params_from_dissemination(conf, args.t,
-                                                           dev)
+        if world > 1:
+            params, mcfg, summary = _params_from_rank0(conf, args.t, dev)
+        else:
+            params, mcfg, summary = _params_from_dissemination(conf, args.t,
+                                                               dev)
         mesh = make_train_mesh(world, mcfg)
         params = tree_unflatten(
             (path, x.to(dev))
             for path, x in tree_leaves(shard_params(params, mesh, mcfg)))
         opt = init_adamw_state(params)
 
+    if args.params_digest:
+        log.info("training params placed", rank=mesh.rank, world=world,
+                 coords=mesh.coords, digests=params_digests(params))
     step = build_adamw_train_step(mcfg, mesh, lr=args.lr)
     inputs, targets = example_batch(mcfg, mesh, batch=args.batch,
                                     seq=args.seq, device=dev)
-    losses = []
+    if dev.type == "cuda":
+        import torch
+
+        from ..ops import flash_attention
+
+        flash_attention.reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, step_s = [], []
     t0 = time.monotonic()
     for _ in range(args.steps):
+        t_step = time.monotonic()
         params, opt, loss = step(params, opt, inputs, targets)
-        losses.append(round(float(loss), 4))
+        losses.append(round(float(loss), 4))  # waits for the step
+        step_s.append(round(time.monotonic() - t_step, 6))
     synchronize(dev)
     train_s = time.monotonic() - t0
-    log.info("training ran", steps=args.steps, losses=losses)
+    ran = {}
+    if dev.type == "cuda":
+        ran = dict(peak_allocated_bytes=torch.cuda.max_memory_allocated(dev),
+                   attention_launches_by_kernel=dict(
+                       flash_attention.launches_by_kernel),
+                   attention_launches_by_device={
+                       d: dict(n) for d, n in
+                       flash_attention.launches_by_device.items()})
+    log.info("training ran", rank=mesh.rank, device=str(dev),
+             steps=args.steps, losses=losses, step_s=step_s, **ran)
 
     if args.ckpt:
         save_train_state(args.ckpt, params, opt, mesh)
@@ -201,6 +290,7 @@ def main(argv=None) -> int:
         "steps": args.steps,
         "final_step": int(opt["step"]),
         "losses": losses,
+        "step_s": step_s,
         "train_s": round(train_s, 3),
     })
     if mesh.rank == 0:

@@ -26,8 +26,10 @@ CUDA blob it launches the kernel or raises.  ``launches`` counts the
 kernel launches, ``launches_by_kernel`` which kernel each was, and
 ``plain_calls`` the calls of each plain version, so a run can show which
 path it took; ``launches_by_instance`` splits each kernel's launches by
-output type (``"int8:float16"``); ``dequant`` also returns the launches it
-made.
+output type (``"int8:float16"``) and ``launches_by_device`` by card;
+``dequant`` also returns the launches it made.  A launch runs on the
+blob's card: the wrapper makes it the current device for the call, as
+``ops/flash_attention.py`` does.
 """
 
 from __future__ import annotations
@@ -57,6 +59,8 @@ launches = 0
 launches_by_kernel = {kind: 0 for kind in KINDS}
 launches_by_instance = {f"{kind}:{str(dt).split('.')[-1]}": 0
                         for kind in KINDS for dt in OUT_KINDS}
+# card ("cuda:k") -> kind -> launches on that card.
+launches_by_device = {}
 plain_calls = {kind: 0 for kind in KINDS}
 
 _fns = {}
@@ -89,6 +93,7 @@ def reset_counts() -> None:
             plain_calls[kind] = 0
         for name in launches_by_instance:
             launches_by_instance[name] = 0
+        launches_by_device.clear()
 
 
 def _kernel(kind: str):
@@ -239,9 +244,10 @@ def dequant(kind: str, blob: torch.Tensor, table: Sequence[Leaf],
     if items == 0:
         return 0
     fn = _kernel(kind)
-    stream = torch.cuda.current_stream(blob.device).cuda_stream
-    err = fn(blob.data_ptr(), geo.ctypes.data, len(table), items,
-             OUT_KINDS[outs[0].dtype], stream)
+    with torch.cuda.device(blob.device):
+        stream = torch.cuda.current_stream(blob.device).cuda_stream
+        err = fn(blob.data_ptr(), geo.ctypes.data, len(table), items,
+                 OUT_KINDS[outs[0].dtype], stream)
     if err != 0:
         raise RuntimeError(f"dequant {kind} kernel launch failed: CUDA error "
                            f"{err}")
@@ -250,4 +256,6 @@ def dequant(kind: str, blob: torch.Tensor, table: Sequence[Leaf],
         launches_by_kernel[kind] += 1
         launches_by_instance[
             f"{kind}:{str(outs[0].dtype).split('.')[-1]}"] += 1
+        per = launches_by_device.setdefault(str(blob.device), {})
+        per[kind] = per.get(kind, 0) + 1
     return 1

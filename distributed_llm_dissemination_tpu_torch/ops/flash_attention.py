@@ -38,7 +38,14 @@ For CUDA tensors it launches the chosen kernel or raises.  ``launches``
 counts the calls that launched, ``launches_by_kernel`` which kernel
 served each, and ``plain_calls`` the calls that took the plain version,
 so a run can show which path it took; ``launches_by_instance`` splits
-each kernel's launches by input type (``"prefill:float16"``).
+each kernel's launches by input type (``"prefill:float16"``) and
+``launches_by_device`` by card (``{"cuda:2": {"decode": n, ...}}``).
+
+A launch runs on the card its tensors lie on: the wrapper makes that card
+the current device for the call (``torch.cuda.device``), so the kernel
+sources' host code, which reads the current device (``cudaGetDevice``),
+and the stream it is given name the same card whichever card the calling
+thread had current.
 
 The port's model (``models/llama.py``, ``models/generate.py``) runs
 every attention through ``block_attention``: the cache-less forward is
@@ -84,6 +91,8 @@ launches_by_kernel = {name: 0 for name in SOURCES}
 launches_by_instance = {
     f"{name}:{str(dt).split('.')[-1]}": 0 for name in SOURCES
     for dt in DTYPE_IDS}
+# card ("cuda:k") -> kernel -> launches on that card.
+launches_by_device = {}
 plain_calls = 0
 
 _fns = {}
@@ -108,6 +117,7 @@ def reset_counts() -> None:
         launches_by_kernel[name] = 0
     for name in launches_by_instance:
         launches_by_instance[name] = 0
+    launches_by_device.clear()
 
 
 def kernel_for(sq: int, g: int, dtype: torch.dtype) -> str:
@@ -230,27 +240,30 @@ def block_attention(qg, k, v, q_off: int, k_off: int):
     l = buf[n_out * (hd + 1) : n_out * (hd + 2)].view(qg.shape[:4])
     if n_out == 0:
         return pv, m, l
-    stream = torch.cuda.current_stream(qg.device).cuda_stream
-    ptrs = (qg.data_ptr(), k.data_ptr(), v.data_ptr(), pv.data_ptr(),
-            m.data_ptr(), l.data_ptr())
-    if name == "decode":
-        part = ptrs[3:]
-        if n_part:  # partials follow pv, m, l in the same buffer
-            base = buf.data_ptr() + 4 * n_out * (hd + 2)
-            part = (base, base + 4 * n_part * hd,
-                    base + 4 * n_part * (hd + 1))
-        err = fn(*ptrs, *part, bh, rows, sq, t, hd, n_vis, n_split, chunk,
-                 int(q_off), int(k_off), LOG2E / math.sqrt(hd),
-                 DTYPE_IDS[qg.dtype], stream)
-    else:
-        err = fn(*ptrs, bh, rows, sq, t, hd, int(q_off), int(k_off),
-                 LOG2E / math.sqrt(hd), DTYPE_IDS[qg.dtype], stream)
+    with torch.cuda.device(qg.device):
+        stream = torch.cuda.current_stream(qg.device).cuda_stream
+        ptrs = (qg.data_ptr(), k.data_ptr(), v.data_ptr(), pv.data_ptr(),
+                m.data_ptr(), l.data_ptr())
+        if name == "decode":
+            part = ptrs[3:]
+            if n_part:  # partials follow pv, m, l in the same buffer
+                base = buf.data_ptr() + 4 * n_out * (hd + 2)
+                part = (base, base + 4 * n_part * hd,
+                        base + 4 * n_part * (hd + 1))
+            err = fn(*ptrs, *part, bh, rows, sq, t, hd, n_vis, n_split,
+                     chunk, int(q_off), int(k_off), LOG2E / math.sqrt(hd),
+                     DTYPE_IDS[qg.dtype], stream)
+        else:
+            err = fn(*ptrs, bh, rows, sq, t, hd, int(q_off), int(k_off),
+                     LOG2E / math.sqrt(hd), DTYPE_IDS[qg.dtype], stream)
     if err != 0:
         raise RuntimeError(f"block_attention {name} kernel launch failed: "
                            f"CUDA error {err}")
     launches += 1
     launches_by_kernel[name] += 1
     launches_by_instance[f"{name}:{str(qg.dtype).split('.')[-1]}"] += 1
+    per = launches_by_device.setdefault(str(qg.device), {})
+    per[name] = per.get(name, 0) + 1
     return pv, m, l
 
 

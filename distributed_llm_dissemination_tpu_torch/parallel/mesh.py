@@ -14,11 +14,16 @@ Two meshes live here:
   builds a mesh without ``torch.distributed``.  Training's named-axis
   collectives (``parallel/axes.py``) run over it.
 - ``DeviceMesh``: named axes over device SLOTS, the single controller's
-  counterpart of JAX's (virtual) devices.  A ``Slot`` is a mesh position
-  with the ``torch.device`` it runs on; devices may repeat (every slot is
-  ``cpu`` on the CPU and ``cuda:0`` on one card), so stage identity is
-  the slot's index, never ``torch.device`` equality.  The fabric's
-  collectives (``parallel/collectives.py``) move bytes between slots.
+  counterpart of JAX's devices.  A ``Slot`` is a mesh position with the
+  ``torch.device`` it runs on.  By default slot i runs on card ``i mod
+  n_cards`` of the host (``slot_devices``): JAX's row-major fill of
+  ``jax.devices()``, except that a mesh with more slots than cards
+  repeats cards where JAX raises, so one card still runs every mesh.
+  Devices may therefore repeat (every slot is ``cpu`` on the CPU, and
+  ``cuda:k`` when pinned to card k), so stage identity is the slot's
+  index, never ``torch.device`` equality.  The fabric's collectives
+  (``parallel/collectives.py``) move bytes between slots: a copy within
+  a card, a peer copy between cards.
 
 ``make_mesh(sizes, names)`` builds a rank ``Mesh``;
 ``make_mesh(sizes, names, devices=...)`` a ``DeviceMesh`` over those
@@ -182,10 +187,41 @@ class Sharding:
         return all(a is None for a in self.spec)
 
 
+def slot_devices(n_slots: int, n_cards: int,
+                 device=None) -> List[torch.device]:
+    """Where each of ``n_slots`` mesh slots runs on a host with
+    ``n_cards`` CUDA cards (a pure function: no CUDA call).  ``device``
+    None or ``"cuda"``: slot i on ``cuda:(i mod n_cards)``, the cards in
+    order, repeated when the mesh has more slots than cards; ``"cuda:k"``:
+    every slot on card k; ``"cpu"``: every slot on the CPU.  Raises for a
+    CUDA slot on a host without a card, or a card the host lacks."""
+    device = getattr(device, "device", device)  # a Slot: its device
+    dev = None if device is None else torch.device(device)
+    if dev is not None and dev.type == "cpu":
+        return [dev] * n_slots
+    if dev is not None and dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if n_cards < 1:
+        raise RuntimeError(
+            "mesh slots on CUDA cards were asked for (device=None means "
+            "cuda) but the host has none; pass device='cpu' explicitly "
+            "for a CPU run")
+    if dev is None or dev.index is None:
+        return [torch.device("cuda", i % n_cards) for i in range(n_slots)]
+    if dev.index >= n_cards:
+        raise ValueError(f"{dev} pinned, but the host has {n_cards} cards")
+    return [dev] * n_slots
+
+
 def device_slots(n: int, device=None) -> List[torch.device]:
-    """``n`` slot devices on one device (None = the CUDA card): the single
-    controller's stand-in for n virtual devices."""
-    return [resolve_device(device)] * n
+    """``n`` slot devices on this host (``slot_devices`` with the host's
+    card count): the cards in order for None or ``"cuda"``, one card for
+    ``"cuda:k"``, the CPU for ``"cpu"``."""
+    dev = getattr(device, "device", device)
+    if dev is not None and torch.device(dev).type == "cpu":
+        return slot_devices(n, 0, dev)
+    resolve_device(dev)  # raises, naming device='cpu', without a card
+    return slot_devices(n, torch.cuda.device_count(), dev)
 
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
@@ -209,8 +245,8 @@ def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
 
 
 def mesh_from_conf(conf, devices: Optional[Sequence] = None) -> DeviceMesh:
-    """The ``Mesh`` section's slot mesh; ``devices`` default: every slot
-    on the CUDA card."""
+    """The ``Mesh`` section's slot mesh; ``devices`` default: the host's
+    cards in order (``device_slots``)."""
     if devices is None:
         devices = device_slots(int(np.prod(conf.axis_sizes)))
     return make_mesh(conf.axis_sizes, conf.axis_names, devices)

@@ -271,9 +271,13 @@ def maybe_initialize(conf: Config, my_id: NodeID, device_type: str = "cpu",
     ``spmd_fabric.PlanFailed`` instead of holding the run for gloo's 30
     minute default).  Returns the
     layout, or None for the single-host case (no ``Distributed`` section,
-    or a single-node topology).  Runs before any device use.  Every rank
-    then checks that all chose the same backend and device type (one
-    gloo all-reduce of a CPU tensor) and raises otherwise."""
+    or a single-node topology).  Runs before any device use; under nccl
+    it first makes ``rank_device`` this process's current card.  Every
+    rank then checks that all chose the same backend and device type (one
+    gloo all-reduce of a CPU tensor) and raises otherwise; under nccl one
+    all-reduce of a CUDA tensor then starts NCCL on every rank, so a
+    machine where it cannot start fails here.  Nothing falls back to
+    gloo."""
     if conf.distributed is None or len(conf.nodes) < 2:
         return None
     check_cpu_collectives(conf)
@@ -285,6 +289,11 @@ def maybe_initialize(conf: Config, my_id: NodeID, device_type: str = "cpu",
     log.info("joining the node set's process group",
              coordinator=layout.coordinator, process_id=layout.process_id,
              num_processes=layout.num_processes, backend=chosen)
+    if chosen == "nccl":
+        # NCCL binds a rank to the current card: make it this rank's own
+        # before the group starts.
+        torch.cuda.set_device(rank_device(conf, layout.process_id, "cuda",
+                                          cuda_count))
     dist.init_process_group(
         backend="cpu:gloo,cuda:nccl" if chosen == "nccl" else "gloo",
         init_method=f"tcp://{layout.coordinator}",
@@ -303,6 +312,15 @@ def maybe_initialize(conf: Config, my_id: NodeID, device_type: str = "cpu",
             "node processes disagree on the group's backend or device type "
             f"(this rank: {chosen} on {device_type}); give every node the "
             "same -device")
+    if chosen == "nccl":
+        # Start NCCL now, on every rank alike: a machine where it cannot
+        # start (shared memory, peer access) fails here, loudly, before
+        # any plan waits on it.
+        probe = torch.ones(1, device=torch.cuda.current_device())
+        dist.all_reduce(probe)
+        if int(probe.item()) != layout.num_processes:
+            raise RuntimeError(f"nccl all-reduce gave {probe.item()}, not "
+                               f"{layout.num_processes}")
     # The serve's group: a whole-world call, made once by every rank.
     _state["serve_group"] = dist.new_group(
         list(range(layout.num_processes)),

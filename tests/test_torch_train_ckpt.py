@@ -18,6 +18,8 @@ the library.  Without ``-resume`` it first disseminates the weights
 blobs: the assembled params equal the JAX package's
 ``_params_from_dissemination`` bit for bit on the same topology, and the
 losses JAX's within the bf16 bound of ``tests/test_torch_sharded.py``.
+In a world of two gloo ranks rank 0 disseminates and broadcasts, and
+each rank's shards equal JAX's params sliced by its coordinates.
 """
 
 import dataclasses
@@ -299,14 +301,55 @@ def test_cli_train_without_resume_waits_for_the_fabric(tmp_path, capsys,
                    str(tmp_path / "ck"), "-device", "cpu"])
 
 
-def test_cli_train_without_resume_refuses_a_larger_world(tmp_path,
-                                                         monkeypatch):
-    """A world of more than one rank starts from a checkpoint: without
-    ``-resume`` the CLI exits before joining any process group."""
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="world of one process"):
-        tcli.main(["-f", _pod_conf(tmp_path), "-device", "cpu"])
-    assert not torch.distributed.is_initialized()
+@pytest.mark.timeout(300)
+def test_cli_train_without_resume_disseminates_in_a_larger_world(
+        tmp_path, cpu_devices):
+    """A world of two gloo ranks without ``-resume``: rank 0 disseminates
+    (``cli.podrun.run_pod`` on its own device), broadcasts the delivered
+    params, and every rank's shards, as training starts, equal the JAX
+    package's ``_params_from_dissemination`` on the same topology, sliced
+    by the rank's mesh coordinates, bit for bit (a digest of each leaf's
+    bytes, ``-params-digest``).  Rank 0 prints the summary with the
+    dissemination's timings; both ranks train the step."""
+    from distributed_llm_dissemination_tpu.cli import train as jcli
+    from distributed_llm_dissemination_tpu.core import config as jcfg
+    from torch_dist_worker import spawn_world
+
+    path = _pod_conf(tmp_path)
+    jparams, _, _ = jcli._params_from_dissemination(jcfg.read_json(path),
+                                                    60.0)
+    full = dict(tsh.tree_leaves(tserde.params_from_numpy(
+        jax.tree.map(np.asarray, jparams), "cpu")))
+    cfg = tllama.CONFIGS["tiny"]
+    sizes = tsh.factor_mesh_axes(2, cfg)
+    assert sizes["tp"] == 2
+    specs = dict(tsh.tree_leaves(tsh.param_specs(cfg)))
+    work = tmp_path / "world"
+    work.mkdir()
+    spawn_world(work, 2, {"kind": "train_cli", "argv": [
+        "-f", path, "-steps", "1", "-batch", "8", "-seq", "16",
+        "-device", "cpu", "-params-digest"]}, {}, timeout=240.0)
+    for r in range(2):
+        lines = (work / f"rank{r}.log").read_text().splitlines()
+        recs = [json.loads(x) for x in lines if x.startswith("{")]
+        placed = [x for x in recs
+                  if x.get("message") == "training params placed"]
+        assert len(placed) == 1, lines[-20:]
+        assert placed[0]["rank"] == r and placed[0]["world"] == 2
+        view = train_ckpt._Coords(sizes, r)
+        want = tcli.params_digests(tsh.tree_unflatten(
+            (p, t[tsh.shard_slices(t.shape, specs[p], view)].clone())
+            for p, t in full.items()))
+        assert placed[0]["digests"] == want, r
+        ran = [x for x in recs if x.get("message") == "training ran"]
+        assert len(ran) == 1 and len(ran[0]["losses"]) == 1
+        summaries = [x for x in recs if "final_step" in x]
+        if r == 0:
+            assert len(summaries) == 1 and summaries[0]["ttd_s"] > 0
+            assert summaries[0]["mesh"] == sizes
+            assert summaries[0]["final_step"] == 1
+        else:
+            assert not summaries
 
 
 @pytest.mark.parametrize("codec", ["", "int8"])

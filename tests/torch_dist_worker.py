@@ -21,6 +21,9 @@ starts the whole world from a test.  Jobs:
   ``train_ckpt.save_train_state`` to the job's ``ckpt``;
 - ``ckpt_restore``: ``train_ckpt.restore_train_state`` of the job's
   ``ckpt`` onto the job's mesh; every local leaf (bf16 as uint16 bits).
+- ``train_cli``: ``cli.train``'s ``main`` with the job's ``argv`` in
+  this world (its output and log records go to the rank's log, which the
+  test reads); no results beyond the exit.
 
 Each result carries this rank's mesh coordinates (``coord/<axis>``), so
 the test can check the row-major fill against its own.  Imports neither
@@ -138,6 +141,13 @@ def run_ckpt(job, inputs):
     return out
 
 
+def run_train_cli(job, inputs):
+    from distributed_llm_dissemination_tpu_torch.cli import train
+
+    assert train.main(job["argv"]) == 0
+    return {}
+
+
 def spawn_world(tmp_path, world: int, job: dict, inputs: dict,
                 timeout: float = 120.0):
     """Run ``job`` on ``world`` ranks, one process each, rendezvous through
@@ -192,7 +202,8 @@ def main(argv):
         with np.load(job["inputs"]) as data:
             inputs = {k: data[k] for k in data.files}
         out = {"ring": run_ring, "step": run_step, "ckpt_save": run_ckpt,
-               "ckpt_restore": run_ckpt}[job["kind"]](job, inputs)
+               "ckpt_restore": run_ckpt,
+               "train_cli": run_train_cli}[job["kind"]](job, inputs)
         np.savez(os.path.join(job["out"], f"rank{rank}.npz"), **out)
         dist.barrier()
     finally:
