@@ -307,7 +307,30 @@ caught):
    launches on its own card and as many as the one-rank run's (a rank
    runs its n_layers / pp layers once per pipeline hop, pp hops a step).  Measured: ms
    per step, tokens/s, peak memory per card, K1 prefill launches per
-   step per card.  Logs in ``build/chip_smoke_cards4*/``.
+   step per card.  Logs in ``build/chip_smoke_cards4*/``.  (e) phase 17's
+   dry run at n = 4 (``phase_dryrun``, no ``entry()``): the ``tiny-moe``
+   step in four nccl processes, one per card; the dissemination round on
+   a 2 x 2 ``pp x tp`` mesh (each stage on two cards, every blob on both)
+   and the fabric round with dest 2 on cards 0-1 and the seeders on 2-3;
+   phase 17's checks, K1 and K2 counted on their tensors' cards.
+
+17. dryrun (after phase 16, before phase 9): the port's multi-device dry
+   run (``distributed_llm_dissemination_tpu_torch/cli/dryrun.py``) on the
+   card.  ``entry()`` first: ``llama.init_params(--config, 0)`` drawn on
+   the card, equal to the seeded blobs bit for bit, its greedy ids of 16
+   zero tokens the reference; then its 128-token forward (K1 prefill once
+   per layer).  Then ``dryrun_multichip(1)`` at ``--config``'s width with
+   phase 3's blobs and phase 8's int8 wire blobs (NICs ``SEEDER_NIC``):
+   (a) one AdamW + remat step of ``tiny-moe``, (b) a mode-3 round over the
+   in-memory transport into one stage on the card, the loss from the
+   landed tensors and the full boot's greedy decode, (c) the int8 fabric
+   round on a 2-slice topology with on-device dequant.  Checked: every
+   blob byte-exact on its slots, the decode's ids equal to the reference,
+   no ``LayerMsg`` on the fabric's transport, full boots, and K1's and
+   K2's launches by kernel and card equal to what the warm-ups, boots,
+   loss, decodes and the step must launch, the plain versions never.
+   Measured: TTD, boot seconds, decode ms per token, the step's loss and
+   seconds, peak memory; the phase's wall time.
 
 Then the ``{"kernels": [...]}`` line (K1's two kernels, their f16 and f32
 instances, then K2 and K3 and their f16 output instances; ``launches`` is
@@ -319,8 +342,10 @@ among them, with phase 11's ``swap``, phase 12's ``fabric`` (K2's
 ``fabric``: its int8 round and the gather's decode), phase 13's ``pods``
 (K2's: its int8 round), phase 14's ``spmd`` (the dests' processes) and
 phase 15's ``ttd_matrix`` (the physical row's dest process) and phase
-16's ``cards4`` (K1: 16b's two rounds, 16c's dests and 16d's ranks; K2:
-16b's int8 round and its gather; null where the phase did not run);
+16's ``cards4`` (K1: 16b's two rounds, 16c's dests, 16d's ranks and
+16e; K2: 16b's int8 round and its gather, and 16e's fabric round; null
+where the phase did not run) and phase 17's ``dryrun`` (K1: ``entry()``'s
+forward and the three parts; K2: the fabric round);
 the prefill entry's
 ``train``
 holds K1 at the training step's block),
@@ -3867,8 +3892,11 @@ def phase_cards4(cfg, args, fa, dq, fab=None):
     d["wall_s"] = time.monotonic() - t0
     k1_train = {name: sum(r["ran"]["attention_launches_by_kernel"].get(
         name, 0) for r in ranks) for name in fa.SOURCES}
+    # 16e
+    e, k1_dry, k2_dry = phase_dryrun(cfg, args, fa, dq, blobs, wire8,
+                                     n=CARDS4)
     launches = {name: k1_pod[name] + k1_spmd[name] + k1_train[name]
-                for name in fa.SOURCES}
+                + k1_dry[name] for name in fa.SOURCES}
     by_device = {"attention": {}, "dequant": {}}
     for kind, tables in (
             ("attention", (b["raw"]["attention_launches_by_device"],
@@ -3878,6 +3906,7 @@ def phase_cards4(cfg, args, fa, dq, fab=None):
                            *(r["ran"]["attention_launches_by_device"]
                              for r in ranks))),
             ("dequant", (b["int8"]["dequant_launches_by_device"],))):
+        tables += (e["launches_by_device"][kind],)
         for table in tables:
             for dev, per in table.items():
                 tally = by_device[kind].setdefault(dev, {})
@@ -3886,11 +3915,246 @@ def phase_cards4(cfg, args, fa, dq, fab=None):
     emit("cards4", ran=True, config=cfg.name, card=nvidia_smi(),
          cards=torch.cuda.device_count(), encode_s=encode_s,
          kernels_and_cards=a, one_controller=b, nccl_processes=c,
-         training=d, attention_launches=launches,
-         dequant_launches={"int8": k2_pod},
+         training=d, dryrun=e, attention_launches=launches,
+         dequant_launches={"int8": k2_pod + k2_dry},
          launches_by_device=by_device,
          phase_wall_s=time.monotonic() - t_phase)
-    return launches, k2_pod
+    return launches, k2_pod + k2_dry
+
+
+# ------------------------------------------------------------ phase 17
+
+
+def _params_equal_blobs(cfg, serde, params, blobs):
+    """Check ``params`` (on the card) against the seeded host blobs bit
+    for bit, leaf by leaf."""
+    import torch
+
+    head = serde.head_blob_id(cfg)
+    for lid in range(head + 1):
+        data = torch.frombuffer(blobs[lid], dtype=torch.uint8).cuda()
+        for name, leaf in serde.decode_device(
+                data, serde.blob_specs(cfg, lid), cfg.dtype).items():
+            got = params[name] if lid == head else params["layers"][name][lid]
+            check(torch.equal(_bits(got), _bits(leaf)),
+                  f"init_params leaf {name} of blob {lid} != the seeded blob")
+
+
+def _warm_attention(fa, warm):
+    """One launch per warmed attention shape (``"attention:<kernel>:..."``)
+    in the warm-up records ``{node: [compiled entries, ...]}``."""
+    want = {name: 0 for name in fa.SOURCES}
+    for recs in warm.values():
+        for compiled in recs:
+            for entry in compiled:
+                if entry.startswith("attention:"):
+                    want[entry.split(":")[1]] += 1
+    return want
+
+
+def _add_launches(tally, per):
+    for name, n in per.items():
+        tally[name] = tally.get(name, 0) + n
+    return tally
+
+
+def dryrun_checks(fa, cfg, out, n, ids_want):
+    """What each part of ``dryrun_multichip(n)`` must show on the cards
+    (phases 17 and 16e).  (a): the loss finite, one AdamW step, rank r on
+    card r, K1's prefill twice per layer a rank runs (the forward and the
+    remat recompute; sp = 1, one ring block) on its own card only.  (b):
+    every blob byte-exact on its stage's cards, the decode's ids equal to
+    ``ids_want``, K1 as the warm-ups, the boots, the loss, the pod forward
+    and both decodes need, only on the dests' cards.  (c): no layer byte
+    on the transport, every blob byte-exact on dest 2's cards (apart from
+    the seeders' when n > 1), a full boot, K1 as the warm-up and the boot
+    need, K2 once per blob plus the warm-up's, the plain versions never.
+    Returns the K1 launches of (b) and (c), and (c)'s K2."""
+    from distributed_llm_dissemination_tpu_torch.cli import dryrun
+    from distributed_llm_dissemination_tpu_torch.models.llama import CONFIGS
+    from distributed_llm_dissemination_tpu_torch.runtime.boot import (
+        BOOT_TOKENS)
+
+    g = cfg.n_heads // cfg.n_kv_heads
+    L = cfg.n_layers
+    cards = [f"cuda:{k}" for k in range(n)]
+    zero = {name: 0 for name in fa.SOURCES}
+
+    tr = out["train"]
+    tcfg = CONFIGS[dryrun.TRAIN_CONFIG]
+    check(tr["step"] == 1 and math.isfinite(tr["loss"]),
+          f"train step {tr['step']}, loss {tr['loss']}")
+    check(tr["devices"] == cards and tr["mesh"]["sp"] == 1,
+          f"train ranks on {tr['devices']}, mesh {tr['mesh']}")
+    per_rank = dict(zero)
+    per_rank[fa.kernel_for(8, tcfg.n_heads // tcfg.n_kv_heads,
+                           tcfg.dtype)] += 2 * tcfg.n_layers
+    for r, (by_k, by_dev) in enumerate(zip(tr["attention_by_rank"],
+                                           tr["attention_by_device"])):
+        check(by_k == per_rank, f"rank {r} K1 {by_k} != {per_rank}")
+        check(by_dev == {cards[r]: {k: v for k, v in per_rank.items() if v}},
+              f"rank {r} launched K1 on {by_dev}")
+    check(tr["attention_plain"] == 0, "plain attention in the train step")
+
+    b = out["dissemination"]
+    pp = 2 if n % 2 == 0 else 1
+    width = n // pp
+    stage_cards = [cards[s * width:(s + 1) * width] for s in range(pp)]
+    dests = {str(i + 1): stage_cards[i] for i in range(pp)}
+    check(b["stages"] == pp and b["node_devices"] == dests,
+          f"dissemination stages {b['stages']}, nodes on {b['node_devices']}")
+    check(b["landed_exact"] == L + 1, f"{b['landed_exact']} blobs exact")
+    for bid, devs in b["blob_devices"].items():
+        node = "1" if pp == 1 or int(bid) < min(3, L - 1) else "2"
+        check(devs == dests[node], f"blob {bid} on {devs}, not {dests[node]}")
+    check(set(b["boots"].values()) == ({"stage"} if pp == 2 else {"full"}),
+          f"boots {b['boots']}")
+    check(math.isfinite(b["loss_from_landed"]), "non-finite landed loss")
+    check(b["tokens"] == ids_want,
+          f"dry-run ids {b['tokens']} != generate's {ids_want}")
+    want_b = _warm_attention(fa, b["warm"])
+    want_b[fa.kernel_for(BOOT_TOKENS, g, cfg.dtype)] += L  # boots
+    # The loss, the pod forward (two stages), the decode's prefill and the
+    # reference generate's, each over 16 tokens; then both decodes' steps.
+    want_b[fa.kernel_for(16, g, cfg.dtype)] += (4 if pp == 2 else 3) * L
+    want_b[fa.kernel_for(1, g, cfg.dtype)] += 2 * (dryrun.DECODE_NEW - 1) * L
+    check(b["attention"] == want_b,
+          f"dissemination K1 {b['attention']} != {want_b}")
+    check(b["attention_plain"] == 0, "plain attention in the round")
+    check(set(b["attention_by_device"]) <= set(cards[:pp * width]),
+          f"dissemination K1 on {sorted(b['attention_by_device'])}")
+
+    c = out["fabric"]
+    dest = c["node_devices"]["2"]
+    check(c["layer_msgs_on_transport"] == 0,
+          f"{c['layer_msgs_on_transport']} LayerMsg on the transport")
+    check(c["landed_exact"] == L + 1 and c["kind"] == "full",
+          f"fabric: {c['landed_exact']} exact, boot {c['kind']}")
+    check(all(d == dest for d in c["blob_devices"].values()),
+          f"fabric blobs on {c['blob_devices']}, dest 2 on {dest}")
+    check(n == 1 or set(dest).isdisjoint(c["node_devices"]["0"]
+                                         + c["node_devices"]["1"]),
+          f"fabric nodes on {c['node_devices']}")
+    want_c = _warm_attention(fa, c["warm"])
+    want_c[fa.kernel_for(BOOT_TOKENS, g, cfg.dtype)] += L
+    check(c["attention"] == want_c, f"fabric K1 {c['attention']} != {want_c}")
+    k2 = L + 1 + sum(e == "dequant:int8" for recs in c["warm"].values()
+                     for compiled in recs for e in compiled)
+    check(c["dequant"] == {"int8": k2, "int4": 0},
+          f"fabric K2/K3 {c['dequant']}, want {k2} int8")
+    check(c["attention_plain"] == 0 and not any(c["dequant_plain"].values()),
+          "a plain version ran in the fabric round")
+    for key in ("attention_by_device", "dequant_by_device"):
+        check(set(c[key]) <= set(dest), f"fabric {key} {c[key]}, dest {dest}")
+    return _add_launches(dict(b["attention"]), c["attention"]), k2
+
+
+def phase_dryrun(cfg, args, fa, dq, blobs, wire8, n=1):
+    """``cli.dryrun.dryrun_multichip(n)`` at ``--config``'s width on the
+    cards (module docstring: phase 17 with n = 1, then ``entry()`` first;
+    phase 16e with n = 4).  ``blobs``/``wire8``: the seeded blobs and
+    their int8 wire form of ``--seed`` (passed on when it is 0, the dry
+    run's seed; else it fabricates).  Returns (record, the path's K1
+    launches by kernel, its K2 launches)."""
+    import os
+
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.cli import dryrun
+    from distributed_llm_dissemination_tpu_torch.models import serde
+    from distributed_llm_dissemination_tpu_torch.models.generate import (
+        generate)
+
+    t_phase = time.monotonic()
+    torch.cuda.set_device(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    g = cfg.n_heads // cfg.n_kv_heads
+    seed0 = args.seed == 0
+    rec = {"n": n, "config": cfg.name}
+    # The reference: greedy ids of 16 zero tokens from entry()'s params
+    # (init_params(cfg, 0) on card 0), held against the seeded blobs.
+    t0 = time.monotonic()
+    fn, (params, tokens) = dryrun.entry(config=cfg.name)
+    torch.cuda.synchronize()
+    rec["init_params_s"] = time.monotonic() - t0
+    if seed0:
+        _params_equal_blobs(cfg, serde, params, blobs)
+        rec["init_params_equal_seeded_blobs"] = True
+    ids_want = generate(params, torch.zeros((1, 16), dtype=torch.long,
+                                            device="cuda"),
+                        cfg, dryrun.DECODE_NEW)[0].tolist()
+    fa.reset_counts()
+    dq.reset_counts()  # the dry run's path counts from here
+    entry_k1 = {name: 0 for name in fa.SOURCES}
+    if n == 1:
+        t0 = time.monotonic()
+        logits = fn(params, tokens)
+        torch.cuda.synchronize()
+        rec["entry_forward_s"] = time.monotonic() - t0
+        check(tuple(logits.shape) == (1, 128, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"entry logits {tuple(logits.shape)}")
+        entry_k1[fa.kernel_for(128, g, cfg.dtype)] += cfg.n_layers
+        check(dict(fa.launches_by_kernel) == entry_k1,
+              f"entry K1 {dict(fa.launches_by_kernel)} != {entry_k1}")
+        del logits
+    del fn, params, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in range(n):
+        torch.cuda.reset_peak_memory_stats(k)
+    t0 = time.monotonic()
+    out = dryrun.dryrun_multichip(
+        n, config=cfg.name, blobs=blobs if seed0 else None,
+        wire=wire8 if seed0 else None,
+        workdir=os.path.join(root, "build", f"chip_smoke_dryrun{n}"))
+    rec["dryrun_multichip_s"] = time.monotonic() - t0
+    k1, k2 = dryrun_checks(fa, cfg, out, n, ids_want)
+    train = out["train"]
+    parent = _add_launches(_add_launches(dict(entry_k1), k1),
+                           train["attention"] if n == 1 else {})
+    check(dict(fa.launches_by_kernel) == parent,
+          f"K1 in this process {dict(fa.launches_by_kernel)} != {parent}")
+    check(dict(dq.launches_by_kernel) == {"int8": k2, "int4": 0},
+          f"K2/K3 in this process {dict(dq.launches_by_kernel)}")
+    check(fa.plain_calls == 0 and not any(dq.plain_calls.values()),
+          "a plain version ran on the dry run's path")
+    launches = _add_launches(_add_launches(dict(entry_k1), k1),
+                             train["attention"])
+    by_device = {"attention": {}, "dequant": {}}
+    for table in ([out["dissemination"]["attention_by_device"],
+                   out["fabric"]["attention_by_device"]]
+                  + train["attention_by_device"]
+                  + ([{"cuda:0": entry_k1}] if n == 1 else [])):
+        for dev, per in table.items():
+            _add_launches(by_device["attention"].setdefault(dev, {}), per)
+    for dev, per in out["fabric"]["dequant_by_device"].items():
+        _add_launches(by_device["dequant"].setdefault(dev, {}), per)
+    b, c = out["dissemination"], out["fabric"]
+    rec.update(
+        train={k: train[k] for k in ("mesh", "loss", "step", "step_s",
+                                     "wall_s", "devices")},
+        dissemination=dict(
+            {k: b[k] for k in ("stages", "mesh", "ttd_s", "predicted_s",
+                               "solve_ms", "boots", "boot_s",
+                               "loss_from_landed", "pod_forward_s",
+                               "pod_decode_s", "tokens", "node_devices",
+                               "blob_devices")},
+            decode_ms_per_token=b["pod_decode_s"] / dryrun.DECODE_NEW * 1e3,
+            bytes=sum(len(x) for x in blobs.values()) if seed0 else None),
+        fabric={k: c[k] for k in ("stages", "mesh", "ttd_s", "predicted_s",
+                                  "solve_ms", "boot_s", "kind", "via",
+                                  "wire_bytes", "layer_msgs_on_transport",
+                                  "node_devices")},
+        ids_equal_generate=True, nic=dryrun.NIC,
+        attention_launches=launches, dequant_launches={"int8": k2},
+        launches_by_device=by_device,
+        peak_memory_by_card={f"cuda:{k}": torch.cuda.max_memory_allocated(k)
+                             for k in range(n)},
+        phase_wall_s=time.monotonic() - t_phase)
+    return rec, launches, k2
 
 
 # ------------------------------------------------------------ phase 9
@@ -5043,6 +5307,9 @@ def main() -> int:
         cards4_k1, cards4_k2 = phase_cards4(cfg, args, fa, dq, fab)
     else:
         emit("cards4", ran=False, cards=cards)
+    dryrun_rec, dryrun_k1, dryrun_k2 = phase_dryrun(
+        cfg, args, fa, dq, fab["blobs"], fab["int8"]["wire"])
+    emit("dryrun", **dryrun_rec)
     del fab["int8"]
     hf_launches, f32_launches = phase_hf(cfg, args, fa, fab, prompt)
     f16_launches = phase_hf_f16(cfg, args, fa, fab, prompt)
@@ -5055,6 +5322,7 @@ def main() -> int:
              "train": train_launches, "swap": swap_launches,
              "fabric": fabric_launches, "pods": pods_launches,
              "spmd": spmd_launches, "ttd_matrix": ttd_launches,
+             "dryrun": dryrun_k1,
              "cards4": cards4_k1 or dict.fromkeys(fa.SOURCES)}
     for kind, st in codec_stats.items():
         st["launches"] = {"codec": st["launches"],
@@ -5062,6 +5330,7 @@ def main() -> int:
     codec_stats["int8"]["launches"]["fabric"] = fabric_k2
     codec_stats["int8"]["launches"]["pods"] = pods_k2
     codec_stats["int8"]["launches"]["cards4"] = cards4_k2
+    codec_stats["int8"]["launches"]["dryrun"] = dryrun_k2
 
     main_mix = f"prompt{args.prompt}"
     entries = [kernel_entry(fa, name, paths, case_stats, mixes, main_mix)

@@ -15,6 +15,14 @@ before the PV product; the kernel keeps them in f32, so the two agree to
 bf16 rounding, not bit for bit.  Every entry point takes an
 ``attention`` argument, ``None`` meaning ``block_attention``; passing
 ``block_attention_ref`` runs the same model through the plain version.
+The JAX ``gqa_attention`` has no function of its own here: ``attend``
+over ``block_attention_ref`` is the plain attention.
+
+``init_params(cfg, seed)`` is the JAX ``init_params(cfg, key(seed))``
+bit for bit (bf16 configs): the same key splits (``model_keys``) and
+threefry draws (``models/prng.py``), one leaf at a time
+(``layer_leaf``/``head_leaf``, which ``serde.seeded_leaf`` draws a
+single seeded leaf with), the layers stacked as JAX stacks them.
 
 The FFN is dense SwiGLU, or for MoE configs (``n_experts > 0``) a top-k
 routed mixture of SwiGLU experts with dense dispatch (``moe_ffn``), as in
@@ -28,9 +36,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from ..ops import flash_attention
+from ..utils.device import resolve_device
+from . import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +111,93 @@ CONFIGS: Dict[str, ModelConfig] = {
         n_heads=128, n_kv_heads=8, d_ff=53248,
     ),
 }
+
+
+# ---------------------------------------------------------------------- init
+
+def _init_leaf(cfg: ModelConfig, name: str, shape, key, device
+               ) -> torch.Tensor:
+    """One init leaf on ``device``: ones for the norms, else the JAX
+    package's ``jax.random.normal(key, shape, dtype) * scale``."""
+    if cfg.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"seeded draws are reproduced for bfloat16 only, not {cfg.dtype}")
+    dev = resolve_device(device)
+    if name.startswith("ln"):
+        return torch.ones(shape, dtype=cfg.dtype, device=dev)
+    scale = cfg.d_ff ** -0.5 if name == "w2" else cfg.d_model ** -0.5
+    return prng.normal_bf16(key, int(np.prod(shape)), scale,
+                            dev).reshape(shape)
+
+
+def model_keys(cfg: ModelConfig, key: prng.Key):
+    """The JAX ``model_keys``: ``split(key, 3)`` into the embed, layers
+    and lm-head keys, then one key per layer."""
+    k_emb, k_layers, k_out = prng.split(key, 3)
+    return k_emb, prng.split(k_layers, cfg.n_layers), k_out
+
+
+def layer_leaf(cfg: ModelConfig, key: prng.Key, name: str,
+               device=None) -> torch.Tensor:
+    """Leaf ``name`` of ``init_layer_params(cfg, key)``, drawn alone: the
+    layer key splits 8 ways and the drawn leaves spend them in order (wq,
+    wk, wv, wo, router for MoE, w1, w3, w2); the norms take no key."""
+    from .serde import layer_param_specs
+
+    specs = dict(layer_param_specs(cfg))
+    drawn = [n for n in specs if not n.startswith("ln")]
+    k = prng.split(key, 8)[drawn.index(name)] if name in drawn else None
+    return _init_leaf(cfg, name, specs[name], k, device)
+
+
+def head_leaf(cfg: ModelConfig, k_emb: prng.Key, k_out: prng.Key,
+              name: str, device=None) -> torch.Tensor:
+    """Leaf ``name`` of ``init_head_params(cfg, k_emb, k_out)``."""
+    from .serde import head_param_specs
+
+    shape = dict(head_param_specs(cfg))[name]
+    return _init_leaf(cfg, name, shape,
+                      {"embed": k_emb, "lm_head": k_out}.get(name), device)
+
+
+def init_layer_params(cfg: ModelConfig, key: prng.Key, device=None
+                      ) -> Dict[str, torch.Tensor]:
+    """One transformer layer's weights (the JAX ``init_layer_params``) on
+    ``device`` (None = the CUDA card)."""
+    from .serde import layer_param_specs
+
+    return {name: layer_leaf(cfg, key, name, device)
+            for name, _ in layer_param_specs(cfg)}
+
+
+def init_head_params(cfg: ModelConfig, k_emb: prng.Key, k_out: prng.Key,
+                     device=None) -> Dict[str, torch.Tensor]:
+    """The non-layer weights: embed, ln_f, lm_head."""
+    from .serde import head_param_specs
+
+    return {name: head_leaf(cfg, k_emb, k_out, name, device)
+            for name, _ in head_param_specs(cfg)}
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None
+                ) -> Dict[str, Any]:
+    """Full model params on ``device`` (None = the CUDA card), equal byte
+    for byte to the JAX ``init_params(cfg, jax.random.key(seed))``: the
+    layer leaves stacked along a leading n_layers axis.  Each layer is
+    drawn, copied into its stacked slot and dropped, so the peak is one
+    layer above the model."""
+    k_emb, layer_keys, k_out = model_keys(cfg, prng.seed_key(seed))
+    stacked: Dict[str, torch.Tensor] = {}
+    for i, lk in enumerate(layer_keys):
+        for name, leaf in init_layer_params(cfg, lk, device).items():
+            if name not in stacked:
+                stacked[name] = torch.empty((cfg.n_layers, *leaf.shape),
+                                            dtype=leaf.dtype,
+                                            device=leaf.device)
+            stacked[name][i] = leaf
+    head = init_head_params(cfg, k_emb, k_out, device)
+    return {"embed": head["embed"], "layers": stacked, "ln_f": head["ln_f"],
+            "lm_head": head["lm_head"]}
 
 
 # ------------------------------------------------------------------- blocks
@@ -277,3 +375,13 @@ def stage_forward(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     for i in range(stacked["wq"].shape[0]):
         x = layer_apply(layer_slice(stacked, i), x, cfg, attention)
     return x
+
+
+def loss_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+            attention=None) -> torch.Tensor:
+    """Next-token cross-entropy on f32 logits (the JAX ``loss_fn``): the
+    mean over [b, s - 1] positions of -log softmax at the next token."""
+    logits = forward(params, tokens[:, :-1], cfg, attention).float()
+    logp = torch.log_softmax(logits, dim=-1)
+    targets = tokens[:, 1:].long()
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()

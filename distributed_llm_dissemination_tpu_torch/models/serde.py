@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
-from . import prng
+from . import llama, prng
 from .llama import ModelConfig
 
 Spec = Tuple[str, Tuple[int, ...]]
@@ -173,39 +173,23 @@ def stacked_from_blobs(cfg: ModelConfig, blobs: Dict[int, Any],
             for name, _ in specs}
 
 
-def _leaf_scale(cfg: ModelConfig, name: str) -> float:
-    """The JAX package's init scale of a drawn leaf (``llama.py``)."""
-    return cfg.d_ff ** -0.5 if name == "w2" else cfg.d_model ** -0.5
-
-
 def seeded_leaf(cfg: ModelConfig, blob_id: int, name: str, seed: int = 0,
                 device=None) -> torch.Tensor:
     """Leaf ``name`` of blob ``blob_id`` of the JAX package's
     ``init_params(cfg, key(seed))``, bit for bit, drawn on ``device``
     (None = the CUDA card) without materialising anything else.
 
-    Keys follow ``llama.model_keys``: ``split(key, 3)`` into embed, layers
-    and lm_head keys, then ``split(k_layers, n_layers)``; a layer splits
-    its key 8 ways and spends them in draw order (wq, wk, wv, wo, router
-    for MoE, w1, w3, w2); the ``ln*`` leaves are ones and take no key.
-    Every device gives the same bytes (``models/prng.py``)."""
-    if cfg.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"seeded draws are reproduced for bfloat16 only, not {cfg.dtype}")
+    Keys follow ``llama.model_keys``; the draw is ``llama.layer_leaf`` or
+    ``llama.head_leaf`` (the one copy of the draw, which
+    ``llama.init_params`` also runs).  Every device gives the same bytes
+    (``models/prng.py``).  A config that is not bf16 raises
+    ``NotImplementedError`` there."""
     if not 0 <= blob_id <= head_blob_id(cfg):
         raise ValueError(f"blob {blob_id} out of range for {cfg.name}")
-    shape = dict(blob_specs(cfg, blob_id))[name]
-    dev = resolve_device(device)
-    if name.startswith("ln"):
-        return torch.ones(shape, dtype=cfg.dtype, device=dev)
-    drawn = [n for n, _ in blob_specs(cfg, blob_id) if not n.startswith("ln")]
-    k_emb, k_layers, k_out = prng.split(prng.seed_key(seed), 3)
+    k_emb, layer_keys, k_out = llama.model_keys(cfg, prng.seed_key(seed))
     if blob_id == head_blob_id(cfg):
-        keys = [k_emb, k_out]
-    else:
-        keys = prng.split(prng.split(k_layers, cfg.n_layers)[blob_id], 8)
-    return prng.normal_bf16(keys[drawn.index(name)], int(np.prod(shape)),
-                            _leaf_scale(cfg, name), dev).reshape(shape)
+        return llama.head_leaf(cfg, k_emb, k_out, name, device)
+    return llama.layer_leaf(cfg, layer_keys[blob_id], name, device)
 
 
 def seeded_leaves(cfg: ModelConfig, blob_id: int, seed: int = 0,
