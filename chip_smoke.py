@@ -98,7 +98,8 @@ caught):
    plain version never, the attention launches as phase 6's, the booted
    params equal to a plain decode on the card of the same wire blobs, and
    ``REQUESTS`` served ids equal to a direct ``generate`` on those.  Then
-   a negotiated round: raw ``llama3-8b-d4v8k`` blobs, ``WireCodec`` int8
+   a negotiated round: raw ``llama3-8b-d4v8k`` blobs cut to
+   ``NEGOTIATED_LAYERS`` layers, ``WireCodec`` int8
    on every node and ``DLD_CODEC_MIN_RATE`` above the modelled links, so
    the leader picks int8 for every pair and the senders encode on send.
    Checked as above, plus: every pair chosen int8, every blob held in its
@@ -332,6 +333,29 @@ caught):
    Measured: TTD, boot seconds, decode ms per token, the step's loss and
    seconds, peak memory; the phase's wall time.
 
+18. receive (after phase 17): the receive path at ``--config``'s width,
+   each round phase 6's topology into a cold ``-hbm`` dest on card 0 over
+   loopback TCP, mode 3.  (a) is phase 6's own round: a spy on dest 2's
+   layer sink tallies the bytes it placed in the reassembly buffers and
+   the bytes that bounced, beside the link table's striped frames;
+   checked there that the sink engaged.  (b) ``update()`` mid-flight:
+   the leader's goal is blobs 0-1 (its boot held) until dest 2 acks one,
+   then ``update()`` makes every blob the goal.  (c) the round with dest
+   2's link corrupting inbound layer frames and the senders duplicating
+   theirs (``RECEIVE_FAULTS``, seeded, no delays); then a
+   ``StreamingBootStager`` given a wrong digest for blob 0 rejects it and
+   ``boot_from_layers`` infills it.  (d) a round of phase 8's int4 wire
+   blobs, and a request to the leader and one to unbooted seeder 1.
+   Checked: each round's blobs byte-exact on the card via incremental
+   ingest, every digest verified, no fallback, a full boot serving
+   phase 3's ids (int4: a direct ``generate`` on its booted params'
+   ids); (b) ``ready`` fires for the whole goal; (c) CRC drops and
+   retransmits counted, the stager boot's ids phase 3's; (d) both
+   refusals in the JAX package's text; K1 and K3 launches by kernel and
+   card as ``receive_launches_predicted`` says, the plain versions never.
+   Measured: the sink's share of bytes, (b)'s update-to-ready time and
+   TTD, (c)'s NACKs and re-sent bytes, (d)'s request latency.
+
 Then the ``{"kernels": [...]}`` line (K1's two kernels, their f16 and f32
 instances, then K2 and K3 and their f16 output instances; ``launches`` is
 the main path's count -- phase 3 for K1, phase 9's f16 and f32 rounds
@@ -345,7 +369,9 @@ phase 15's ``ttd_matrix`` (the physical row's dest process) and phase
 16's ``cards4`` (K1: 16b's two rounds, 16c's dests, 16d's ranks and
 16e; K2: 16b's int8 round and its gather, and 16e's fabric round; null
 where the phase did not run) and phase 17's ``dryrun`` (K1: ``entry()``'s
-forward and the three parts; K2: the fabric round);
+forward and the three parts; K2: the fabric round) and phase 18's
+``receive`` (K1: its three rounds, the stager boot and the direct
+``generate``; K3: the int4 round);
 the prefill entry's
 ``train``
 holds K1 at the training step's block),
@@ -356,6 +382,7 @@ the script's wall time, the card's name and power limit as
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import gc
 import json
@@ -393,9 +420,10 @@ REQUESTS = 3  # served requests in the dissemination phase
 SEEDER_NIC = 1 << 40
 DEST_NIC = 1 << 41
 # The cli phase's dest serves this long after its boot: time for
-# REQUESTS genreq processes (each a fresh interpreter, about 2 s apiece:
-# the client never loads torch) to ask.
-SERVE_WINDOW_S = 25
+# REQUESTS genreq processes (each a fresh interpreter, 1.4-1.7 s apiece
+# on the card's host: the client never loads torch) to ask, about three
+# times over; the phase waits for the dest to close its window.
+SERVE_WINDOW_S = 15
 CHILD_TIMEOUT_S = 600  # any one node or genreq process
 
 
@@ -1155,16 +1183,74 @@ def _join_round_threads(before, timeout_s: float = 30.0) -> None:
             t.join(max(0.0, deadline - time.monotonic()))
 
 
-def mode3_round(cfg, args, fa, prompt, blobs, boot_codec="raw", plane=None):
+def _spy_sink(transport):
+    """Wrap the layer sink the dest registered on ``transport`` (as
+    ``tests/test_zerocopy.py:87-99`` does) and tally what it placed in the
+    reassembly buffers and what it declined (those fragments bounce)."""
+    real = transport.layer_sink
+    check(real is not None, "the dest registered no layer sink")
+    tally = dict.fromkeys(("placed", "placed_bytes", "declined",
+                           "declined_bytes"), 0)
+    lock = threading.Lock()
+
+    def spy(layer_id, total, offset, size):
+        got = real(layer_id, total, offset, size)
+        key = "placed" if got is not None else "declined"
+        with lock:
+            tally[key] += 1
+            tally[key + "_bytes"] += size
+        return got
+
+    transport.layer_sink = spy
+    return tally
+
+
+def _await_first_ack(leader, first, timeout_s=600.0):
+    """Block until the leader's status row of dest 2 holds a blob of
+    ``first`` (its ack landed); returns the acked ids."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        with leader._lock:
+            acked = sorted(set(leader.status.get(2, {})) & set(first))
+        if acked:
+            return acked
+        check(time.monotonic() < deadline,
+              f"no blob of {sorted(first)} acked in {timeout_s} s")
+        time.sleep(0.001)
+
+
+def _window(fa, dq):
+    """The kernel counts since the last ``reset_counts``: K1 and K2/K3 by
+    kernel, instance and card, and the plain versions' calls."""
+    import copy
+
+    return {"attention": dict(fa.launches_by_kernel),
+            "attention_by_instance": dict(fa.launches_by_instance),
+            "attention_by_device": copy.deepcopy(fa.launches_by_device),
+            "attention_plain": fa.plain_calls,
+            "dequant": dict(dq.launches_by_kernel),
+            "dequant_by_instance": dict(dq.launches_by_instance),
+            "dequant_by_device": copy.deepcopy(dq.launches_by_device),
+            "plain": dict(dq.plain_calls)}
+
+
+def mode3_round(cfg, args, fa, prompt, blobs, boot_codec="raw", plane=None,
+                first=None, faults=None, refusals=False):
     """One mode-3 round of phase 6's topology over loopback TCP: leader 0
     and seeder 1 hold ``blobs`` (one shared host copy), cold dest 2
     ingests them fragment by fragment into the card's memory, stages,
     boots under ``boot_codec`` and answers ``REQUESTS`` greedy requests
     for ``prompt`` from requester seat 3.  ``plane``: None, or a factory
-    of each node's wire-codec plane (as ``cli.main`` builds one).  The
-    kernel counts are zeroed just before and read just after.  Returns
-    what the callers check, with the nodes closed and their threads
-    joined."""
+    of each node's wire-codec plane (as ``cli.main`` builds one).
+    ``first``: the leader's first goal (blob ids); when dest 2 acks one of
+    them the leader's ``update()`` makes every blob the goal, and the boot
+    is held until then (phase 18 (b)).  ``faults``: {node: fault spec},
+    each such node's link wrapped in a seeded ``FaultyTransport``.
+    ``refusals``: after the requests, one request to the leader and one to
+    unbooted seeder 1, whose refusal texts are returned.  The dest's layer
+    sink is tallied (``_spy_sink``).  The kernel counts are zeroed just
+    before and read just after.  Returns what the callers check, with the
+    nodes closed and their threads joined."""
     import os
 
     import torch
@@ -1178,6 +1264,8 @@ def mode3_round(cfg, args, fa, prompt, blobs, boot_codec="raw", plane=None):
         FlowRetransmitLeaderNode, FlowRetransmitReceiverNode, Node)
     from distributed_llm_dissemination_tpu_torch.runtime.client import (
         GenRequester)
+    from distributed_llm_dissemination_tpu_torch.transport.faults import (
+        FaultyTransport, rules_from_spec)
     from distributed_llm_dissemination_tpu_torch.transport.tcp import (
         TcpTransport)
     from distributed_llm_dissemination_tpu_torch.utils import (
@@ -1196,6 +1284,8 @@ def mode3_round(cfg, args, fa, prompt, blobs, boot_codec="raw", plane=None):
         return plane() if plane is not None else None
 
     assignment = {2: {lid: LayerMeta() for lid in ids}}
+    goal = ({2: {lid: LayerMeta() for lid in first}} if first
+            else assignment)
     placement = assignment_to_placement(assignment)  # one card, one stage
     nic = {0: SEEDER_NIC, 1: SEEDER_NIC, 2: DEST_NIC}
     # The boot keeps each staged blob's tensor referenced, so the callers'
@@ -1204,6 +1294,10 @@ def mode3_round(cfg, args, fa, prompt, blobs, boot_codec="raw", plane=None):
     ts = {i: TcpTransport("127.0.0.1:0") for i in range(4)}
     for t in ts.values():
         t.addr_registry.update({i: u.addr for i, u in ts.items()})
+    links = dict(ts)
+    for i, spec in (faults or {}).items():
+        seed, rules = rules_from_spec(spec)
+        links[i] = FaultyTransport(ts[i], rules, seed=seed)
     gc.collect()  # an earlier round's nodes and tensors
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1213,23 +1307,44 @@ def mode3_round(cfg, args, fa, prompt, blobs, boot_codec="raw", plane=None):
     fa.reset_counts()
     dq.reset_counts()  # the round's counts start here
     t_phase = time.monotonic()
-    leader = FlowRetransmitLeaderNode(Node(0, 0, ts[0]), holdings(),
-                                      assignment, nic, expected_nodes={1, 2},
+    leader = FlowRetransmitLeaderNode(Node(0, 0, links[0]), holdings(),
+                                      goal, nic, expected_nodes={1, 2},
                                       codecs=codecs())
-    seeder = FlowRetransmitReceiverNode(Node(1, 0, ts[1]), holdings(),
+    # With a first goal the boot waits for the whole one: the startup of
+    # a goal met before the update carries no boot.
+    leader.boot_enabled = not first
+    seeder = FlowRetransmitReceiverNode(Node(1, 0, links[1]), holdings(),
                                         codecs=codecs())
-    dest = FlowRetransmitReceiverNode(Node(2, 0, ts[2]), {}, stage_hbm=True,
-                                      placement=placement, boot_cfg=cfg,
-                                      boot_codec=boot_codec, codecs=codecs())
-    requester = GenRequester(ts[3], my_id=3)
+    dest = FlowRetransmitReceiverNode(Node(2, 0, links[2]), {},
+                                      stage_hbm=True, placement=placement,
+                                      boot_cfg=cfg, boot_codec=boot_codec,
+                                      codecs=codecs())
+    sink = _spy_sink(ts[2])
+    requester = GenRequester(links[3], my_id=3)
     try:
         seeder.announce()
         dest.announce()
         t_call = time.monotonic()
         leader.start_distribution().get(timeout=300)
         t0 = time.monotonic()
-        leader.ready().get(timeout=600)
+        upd = None
+        if first:
+            acked = _await_first_ack(leader, first)
+            t_update = time.monotonic()
+            leader.boot_enabled = True
+            leader.update(assignment)
+            upd = {"acked_at_update": acked,
+                   "update_after_start_s": t_update - t0}
+        ready_goals = []
+        while True:  # a first goal met before the update fires its own
+            goal_met = leader.ready().get(timeout=600)
+            ready_goals.append(sorted(goal_met.get(2, {})))
+            if ready_goals[-1] == ids:
+                break
         t_startup = time.monotonic()
+        if upd is not None:
+            upd.update(ready_goals=ready_goals,
+                       update_to_ready_s=t_startup - t_update)
         booted = leader.boot_ready().get(timeout=600)
         t_boot = time.monotonic()
         served, latency = [], []
@@ -1238,13 +1353,22 @@ def mode3_round(cfg, args, fa, prompt, blobs, boot_codec="raw", plane=None):
             served.append(requester.request(2, prompt[0].tolist(), args.gen,
                                             timeout=300))
             latency.append(time.monotonic() - t_req)
+        refused = {}
+        for node in ((0, 1) if refusals else ()):
+            t_req = time.monotonic()
+            try:
+                requester.request(node, prompt[0].tolist(), args.gen,
+                                  timeout=60)
+            except RuntimeError as e:  # the refusal under test
+                refused[node] = {"text": str(e),
+                                 "latency_s": time.monotonic() - t_req}
+            check(node in refused, f"node {node} served a request")
         return {  # ...and are read here
-            "attention": dict(fa.launches_by_kernel),
-            "attention_by_instance": dict(fa.launches_by_instance),
-            "attention_plain": fa.plain_calls,
-            "dequant": dict(dq.launches_by_kernel),
-            "dequant_by_instance": dict(dq.launches_by_instance),
-            "plain": dict(dq.plain_calls),
+            **_window(fa, dq),
+            "sink": dict(sink),
+            "update": upd,
+            "refused": refused,
+            "faults": {i: dict(links[i].stats) for i in (faults or {})},
             "wall_s": time.monotonic() - t_phase,
             "counters": trace.counter_totals(),
             "phases": trace.phase_totals(),
@@ -1282,6 +1406,24 @@ def mode3_round(cfg, args, fa, prompt, blobs, boot_codec="raw", plane=None):
             t.close()
         _join_round_threads(threads_before)
         os.environ.pop("DLD_BOOT_DONATE", None)
+
+
+def _sink_record(out):
+    """What dest 2's layer sink placed in the reassembly buffers and what
+    bounced, with the round's striped and placed frames into dest 2 (the
+    transport's link table)."""
+    rows = [row for key, row in out["links"].items()
+            if "#" not in key and key.endswith("->2")]
+    sink = out["sink"]
+    return dict(sink, bounced_bytes=sink["declined_bytes"],
+                rx_bytes=sum(r.get("rx_bytes", 0) for r in rows),
+                rx_frames=sum(r.get("rx_frames", 0) for r in rows),
+                rx_placed_frames=sum(r.get("rx_placed_frames", 0)
+                                     for r in rows),
+                striped_frames=sum(r.get("rx_stripe_frames", 0)
+                                   for r in rows),
+                placed_share=sink["placed_bytes"] / max(
+                    1, sink["placed_bytes"] + sink["declined_bytes"]))
 
 
 def _sent_by_source(links):
@@ -1323,6 +1465,10 @@ def phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=False):
     launches = out["attention"]
     want = _expected_round_launches(fa, cfg, args, warm[0][0]["launches"])
     check(launches == want, f"round launches {launches} != {want}")
+    sink = _sink_record(out)
+    check(sink["placed"] > 0, f"the layer sink never engaged: {sink}")
+    if not without_xxhash:
+        fab["sink"] = sink  # phase 18 (a)
 
     ttd = out["ttd_s"]
     direct = fab["serve_ms"]
@@ -1350,7 +1496,7 @@ def phase_dissemination(cfg, args, fa, fab, prompt, without_xxhash=False):
          loopback_raw_gbps=(loopback_gbps()
                             if not without_xxhash else None),
          staged_via_incremental_ingest=via_ingest, fallbacks=fallbacks,
-         precompile=[rec for rec, _ in warm],
+         sink=sink, precompile=[rec for rec, _ in warm],
          boot_kind=res.kind, boot_via=res.via,
          ttft_s=out["ttft_s"], ttft_total_s=out["ttft_total_s"],
          boot_s=out["booted"][2],
@@ -1913,6 +2059,9 @@ CODEC_REPLACES = {
     "int8": "distributed_llm_dissemination_tpu/models/quant.py:276",
     "int4": "distributed_llm_dissemination_tpu/models/quant.py:305"}
 NEGOTIATED_CONFIG = "llama3-8b-d4v8k"  # llama3-8b-d4's layers, 8192-token head
+# ...cut to this depth, so the script stays within its time (the round's
+# host encode on send is linear in the layers).
+NEGOTIATED_LAYERS = 2
 # Above every modelled link of the round (SEEDER_NIC, DEST_NIC), so the
 # leader picks the wire codec on loopback; pacing the wire down to the
 # plane's default threshold (64 MiB/s) would cost about 30 s.
@@ -2242,7 +2391,9 @@ def phase_codec(cfg, args, fa, fab, prompt, raw_ttd_s):
 
     # The negotiated round: raw canonicals, WireCodec int8, the threshold
     # above the modelled links so the leader picks int8 on every pair.
-    ncfg = CONFIGS[NEGOTIATED_CONFIG]
+    ncfg = dataclasses.replace(CONFIGS[NEGOTIATED_CONFIG],
+                               name=f"{NEGOTIATED_CONFIG}-d{NEGOTIATED_LAYERS}",
+                               n_layers=NEGOTIATED_LAYERS)
     t0 = time.monotonic()
     nblobs = {i: bytearray(serde.seeded_blob(ncfg, i, seed=args.seed))
               for i in range(serde.head_blob_id(ncfg) + 1)}
@@ -2303,9 +2454,11 @@ def phase_codec(cfg, args, fa, fab, prompt, raw_ttd_s):
     del out, ref, raw_ref, nblobs
     gc.collect()
     torch.cuda.empty_cache()
-    # Phase 12's int8 fabric round serves the same wire blobs.
+    # Phase 12's int8 fabric round serves the same wire blobs, phase 18's
+    # int4 round the int4 ones.
     fab["int8"] = {"wire": wire["int8"],
                    "ids": rounds["int8"]["record"]["served_ids"]}
+    fab["int4"] = {"wire": wire["int4"]}
     emit("codec", rounds={k: r["record"] for k, r in rounds.items()},
          negotiated=negotiated, phase_wall_s=time.monotonic() - t_phase)
     return {kind: {"launches": rounds[kind]["launches"],
@@ -4157,6 +4310,221 @@ def phase_dryrun(cfg, args, fa, dq, blobs, wire8, n=1):
     return rec, launches, k2
 
 
+# ------------------------------------------------------------ phase 18
+
+RECEIVE_FIRST = (0, 1)  # (b): the leader's goal until its update()
+RECEIVE_BAD_BLOB = 0  # (c): the blob the stager is given a wrong digest for
+# (c): corrupt inbound layer frames on dest 2's link, duplicate the
+# senders' (leader 0, seeder 1) layer frames to it; seeded, no delays.
+RECEIVE_FAULTS = {2: "seed=18,corrupt=29,times=4",
+                  0: "seed=18,dup=31,times=4", 1: "seed=18,dup=31,times=4"}
+# (d): the refusals' text as the JAX package writes it
+# (``distributed_llm_dissemination_tpu/runtime/leader.py:1903``,
+# ``runtime/receiver.py:2565``), behind ``GenRequester``'s prefix;
+# ``tests/test_torch_generate_serving.py`` holds the port's equal to it.
+JAX_REFUSALS = {
+    0: "node 0 refused generation: the leader seat serves no model; ask a "
+       "booted assignee",
+    1: "node 1 refused generation: no booted model at this node (no boot "
+       "config)"}
+
+
+def receive_launches_predicted(fa, cfg, args):
+    """Phase 18's K1 launches by kernel, as ``PERF.md`` predicts them: each
+    of its three rounds is phase 6's (a warm-up of one prefill and one
+    decode, the boot's forward, ``REQUESTS`` served requests); (c)'s
+    stager boot runs phase 3's serve (the boot forward over the prompt,
+    then ``--gen`` tokens); (d)'s direct ``generate`` one prefill and
+    ``--gen - 1`` decode steps."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    L = cfg.n_layers
+    want = {name: 0 for name in fa.SOURCES}
+    for _ in range(3):
+        _add_launches(want, _expected_round_launches(
+            fa, cfg, args, {"prefill": 1, "decode": 1}))
+    for n, sq, *_ in serving_shapes(cfg, args.prompt, args.gen):
+        want[fa.kernel_for(sq, g, cfg.dtype)] += n
+    want[fa.kernel_for(args.prompt, g, cfg.dtype)] += L
+    want[fa.kernel_for(1, g, cfg.dtype)] += (args.gen - 1) * L
+    return want
+
+
+def _receive_counts(fa, cfg, args, out, warm_key=None):
+    """A round's K1 launches against phase 6's formula, on card 0 only."""
+    want = _expected_round_launches(fa, cfg, args, out["warm"][0][0]["launches"])
+    check(out["attention"] == want,
+          f"round K1 {out['attention']} != {want}")
+    check(set(out["attention_by_device"]) == {"cuda:0"}
+          and set(out["dequant_by_device"]) <= {"cuda:0"},
+          f"launched on {sorted(out['attention_by_device'])}, "
+          f"{sorted(out['dequant_by_device'])}")
+    check(out["attention_plain"] == 0 and not any(out["plain"].values()),
+          "a plain version ran in the round")
+    return out
+
+
+def phase_receive(cfg, args, fa, dq, fab, prompt):
+    """Phase 18 (module docstring): the receive path on the card.  (a) is
+    phase 6's round (``fab["sink"]``); (b)-(d) run here.  Returns (record,
+    K1 launches by kernel, K3 launches)."""
+    import torch
+
+    from distributed_llm_dissemination_tpu_torch.models import quant
+    from distributed_llm_dissemination_tpu_torch.models.generate import (
+        generate)
+    from distributed_llm_dissemination_tpu_torch.runtime.boot import (
+        boot_from_layers)
+    from distributed_llm_dissemination_tpu_torch.runtime.codec import (
+        WireCodecPlane)
+    from distributed_llm_dissemination_tpu_torch.runtime.stream_boot import (
+        StreamingBootStager)
+    from distributed_llm_dissemination_tpu_torch.utils import integrity, trace
+
+    t_phase = time.monotonic()
+    blobs = fab["blobs"]
+    ids = sorted(blobs)
+    tokens = fab["tokens"]
+    total = sum(len(b) for b in blobs.values())
+    k1 = {name: 0 for name in fa.SOURCES}
+    k3 = 0
+    by_device = {"attention": {}, "dequant": {}}
+
+    def tally(win):
+        nonlocal k3
+        _add_launches(k1, win["attention"])
+        k3 += win["dequant"]["int4"]
+        check(win["dequant"]["int8"] == 0, f"K2 launched: {win['dequant']}")
+        for key in by_device:
+            for dev, per in win[f"{key}_by_device"].items():
+                _add_launches(by_device[key].setdefault(dev, {}), per)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) update() mid-flight: the first goal is blobs 0-1; at its first
+    # ack the goal becomes every blob.
+    out = mode3_round(cfg, args, fa, prompt, blobs, first=RECEIVE_FIRST)
+    _check_raw_round(cfg, out, blobs, tokens, full_width=False)
+    sent = _sent_by_source(out["links"])
+    check(all(sent.values()), f"a seeder sent nothing: {sent}")
+    upd = out["update"]
+    check(upd["ready_goals"][-1] == ids and len(upd["ready_goals"]) <= 2,
+          f"ready goals {upd['ready_goals']}")
+    tally(_receive_counts(fa, cfg, args, out))
+    rec_b = dict(_round_record(out, sent), **upd,
+                 acked_blob_bytes=[len(blobs[lid])
+                                   for lid in upd["acked_at_update"]],
+                 sent_beyond_model_bytes=sum(sent.values()) - total,
+                 sink=_sink_record(out), served_ids_equal_phase3=True)
+    del out
+    free()
+
+    # (c) the round under seeded faults, then the stager given a wrong
+    # digest for one blob: it rejects it and the boot infills it.
+    out = mode3_round(cfg, args, fa, prompt, blobs, faults=RECEIVE_FAULTS)
+    _check_raw_round(cfg, out, blobs, tokens)
+    tally(_receive_counts(fa, cfg, args, out))
+    counters = out["counters"]
+    for key in ("integrity.crc_drop", "integrity.retransmit_frags"):
+        check(counters.get(key, 0) >= 1, f"{key} = {counters.get(key, 0)}")
+    check(out["faults"][2]["corrupt"] >= 1
+          and out["faults"][0]["dup"] + out["faults"][1]["dup"] >= 1,
+          f"faults fired {out['faults']}")
+    sent = _sent_by_source(out["links"])
+    rec_c = dict(_round_record(out, sent),
+                 sent_beyond_model_bytes=sum(sent.values()) - total,
+                 fault_specs=RECEIVE_FAULTS, faults_fired=out["faults"],
+                 **{k.split(".", 1)[1]: counters.get(k, 0) for k in (
+                     "integrity.crc_drop", "integrity.crc_drop_bytes",
+                     "integrity.nack_sent", "integrity.nack_suppressed",
+                     "integrity.retransmit_frags",
+                     "integrity.retransmit_bytes")},
+                 sink=_sink_record(out), served_ids_equal_phase3=True)
+    held = out["held"]
+    del out
+    free()
+    digests = {lid: integrity.layer_digest(bytes(blobs[lid])) for lid in ids}
+    digests[RECEIVE_BAD_BLOB] = "00" * integrity.DIGEST_SIZE
+    mismatches = trace.counter_totals().get("integrity.digest_mismatch", 0)
+    fa.reset_counts()
+    dq.reset_counts()
+    t0 = time.monotonic()
+    stager = StreamingBootStager(cfg, device="cuda", digest_lookup=digests.get,
+                                 digest_verified=set())
+    try:
+        for lid in ids:
+            check(stager.submit(lid, held[lid]), f"stager refused blob {lid}")
+        staged = stager.collect(ids)
+        res = boot_from_layers(cfg, held, stager=stager, tokens=prompt,
+                               generate_tokens=args.gen)
+    finally:
+        stager.close()
+    win = _window(fa, dq)
+    rejected = sorted(set(ids) - set(staged))
+    check(rejected == [RECEIVE_BAD_BLOB], f"stager rejected {rejected}")
+    check(trace.counter_totals().get("integrity.digest_mismatch", 0)
+          > mismatches, "no digest mismatch counted")
+    check(res.via == "streamed per-layer (+1 infilled)", f"via {res.via!r}")
+    check(res.tokens[0].tolist() == tokens,
+          f"infilled boot ids {res.tokens[0].tolist()} != {tokens}")
+    want = {name: 0 for name in fa.SOURCES}
+    g = cfg.n_heads // cfg.n_kv_heads
+    for n, sq, *_ in serving_shapes(cfg, args.prompt, args.gen):
+        want[fa.kernel_for(sq, g, cfg.dtype)] += n
+    check(win["attention"] == want, f"stager boot K1 {win['attention']}")
+    tally(win)
+    rec_c["stager"] = {"rejected": rejected, "via": res.via,
+                       "boot_s": time.monotonic() - t0,
+                       "ids_equal_phase3": True}
+    del held, res, staged
+    free()
+
+    # (d) int4 serving over the wire, and the refusals.
+    wire = fab["int4"]["wire"]
+    out = mode3_round(cfg, args, fa, prompt, wire, boot_codec="int4",
+                      plane=functools.partial(WireCodecPlane, cfg,
+                                              model_codec="int4"),
+                      refusals=True)
+    sizes = {lid: quant.blob_nbytes_codec(cfg, lid, "int4") for lid in ids}
+    delivered = _check_codec_round(fa, cfg, args, out, ids, sizes, "int4",
+                                   "dequant_int4")
+    tally(_receive_counts(fa, cfg, args, out))
+    for node, text in JAX_REFUSALS.items():
+        got = out["refused"][node]["text"]
+        check(got == text, f"node {node} refused with {got!r}")
+    fa.reset_counts()
+    dq.reset_counts()
+    direct = generate(out["res"].params, prompt, cfg, args.gen)[0].tolist()
+    win = _window(fa, dq)
+    for ids_got in out["served"]:
+        check(ids_got == direct, f"int4 served ids {ids_got} != {direct}")
+    want = {name: 0 for name in fa.SOURCES}
+    want[fa.kernel_for(args.prompt, g, cfg.dtype)] += cfg.n_layers
+    want[fa.kernel_for(1, g, cfg.dtype)] += (args.gen - 1) * cfg.n_layers
+    check(win["attention"] == want, f"direct generate K1 {win['attention']}")
+    tally(win)
+    rec_d = dict(_round_record(out), wire_bytes=delivered,
+                 refused=out["refused"], served_ids=direct,
+                 served_ids_equal_direct_generate=True)
+    del out
+    free()
+
+    predicted = receive_launches_predicted(fa, cfg, args)
+    check(k1 == predicted, f"phase 18 K1 {k1} != predicted {predicted}")
+    check(k3 == len(ids) + 1, f"phase 18 K3 {k3} != {len(ids) + 1}")
+    check(by_device == {"attention": {"cuda:0": {k: v for k, v in k1.items()
+                                                 if v}},
+                        "dequant": {"cuda:0": {"int4": k3}}},
+          f"phase 18 launches by card {by_device}")
+    rec = dict(config=cfg.name, bytes=total, sink=fab["sink"],
+               update=rec_b, faults=rec_c, int4=rec_d,
+               attention_launches=k1, attention_launches_predicted=predicted,
+               dequant_launches={"int4": k3}, launches_by_device=by_device,
+               phase_wall_s=time.monotonic() - t_phase)
+    return rec, k1, k3
+
+
 # ------------------------------------------------------------ phase 9
 
 HF_SHARDS = 2  # safetensors files of the phase-9 checkpoint
@@ -5311,6 +5679,10 @@ def main() -> int:
         cfg, args, fa, dq, fab["blobs"], fab["int8"]["wire"])
     emit("dryrun", **dryrun_rec)
     del fab["int8"]
+    receive_rec, receive_k1, receive_k3 = phase_receive(cfg, args, fa, dq,
+                                                        fab, prompt)
+    emit("receive", **receive_rec)
+    del fab["int4"]
     hf_launches, f32_launches = phase_hf(cfg, args, fa, fab, prompt)
     f16_launches = phase_hf_f16(cfg, args, fa, fab, prompt)
     mixes[f"{MOE_CONFIG} prompt{args.prompt}"], moe_launches, moe_k2 = (
@@ -5322,7 +5694,7 @@ def main() -> int:
              "train": train_launches, "swap": swap_launches,
              "fabric": fabric_launches, "pods": pods_launches,
              "spmd": spmd_launches, "ttd_matrix": ttd_launches,
-             "dryrun": dryrun_k1,
+             "dryrun": dryrun_k1, "receive": receive_k1,
              "cards4": cards4_k1 or dict.fromkeys(fa.SOURCES)}
     for kind, st in codec_stats.items():
         st["launches"] = {"codec": st["launches"],
@@ -5331,6 +5703,8 @@ def main() -> int:
     codec_stats["int8"]["launches"]["pods"] = pods_k2
     codec_stats["int8"]["launches"]["cards4"] = cards4_k2
     codec_stats["int8"]["launches"]["dryrun"] = dryrun_k2
+    codec_stats["int8"]["launches"]["receive"] = 0
+    codec_stats["int4"]["launches"]["receive"] = receive_k3
 
     main_mix = f"prompt{args.prompt}"
     entries = [kernel_entry(fa, name, paths, case_stats, mixes, main_mix)

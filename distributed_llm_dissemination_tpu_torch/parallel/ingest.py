@@ -217,8 +217,10 @@ class ShardedLayerIngest:
             raise ValueError(
                 f"fragment [{offset}, {end}) outside layer of {self.total} bytes")
         with self._lock:
-            if self._closed:
-                return  # a late duplicate racing finalize: already covered
+            if self._closed or self._failed:
+                # A late duplicate racing finalize (already covered), or
+                # a write into a poisoned ingest nobody will read.
+                return
             tok, claims = self._cov.claim(offset, end)
             if tok is None:
                 return  # full duplicate -- idempotent
@@ -262,7 +264,9 @@ class ShardedLayerIngest:
 
     def fail(self) -> None:
         """Mark the ingest broken; wakes any ``finalize`` waiter, which
-        then raises so the caller falls back to bulk staging."""
+        then raises so the caller falls back to bulk staging.  Later
+        writes are no-ops, so a demoted layer's stragglers queue no more
+        copies into buffers nobody reads."""
         with self._lock:
             self._failed = True
             self._complete.notify_all()

@@ -96,7 +96,10 @@ class WeightMover:
     def copy_to(self, dst: torch.Tensor, src) -> None:
         """Copy host bytes ``src`` into the 1-D uint8 tensor ``dst`` (same
         length).  Thread-safe.  On CUDA the copy may still be in flight on
-        return: ``synchronize`` waits for it."""
+        return: ``synchronize`` waits for it.  ``dst``'s memory is marked
+        in use by the mover's stream, so a caller that drops ``dst`` before
+        the copy landed (a poisoned ingest) never hands the caching
+        allocator a block a late copy still writes."""
         src = np.frombuffer(memoryview(src), dtype=np.uint8)
         n = src.shape[0]
         if dst.numel() != n:
@@ -117,6 +120,7 @@ class WeightMover:
                     chunk.event.record(self._stream)
             finally:
                 free.put(chunk)
+        dst.record_stream(self._stream)
 
     def copy_device(self, dst: torch.Tensor, src: torch.Tensor) -> None:
         """Device-to-device copy ordered with the mover's host copies."""

@@ -2391,10 +2391,12 @@ class LeaderNode:
         Declarative semantics: the new assignment wholly replaces the old
         BASE goal (admitted jobs keep their own targets and re-merge on
         top — a version rollout must not be cancelled by a base
-        re-target).  Already-delivered layers are not re-sent; missing
-        ones are scheduled; if the new goal adds work after ``ready``
-        already fired, the completion cycle re-arms and ``ready()``
-        delivers again once the new goal is met."""
+        re-target).  Acked layers are not re-sent; missing ones are
+        scheduled, and a layer still on the wire (not yet acked) counts
+        as missing: the re-plan sends it again and the dest absorbs the
+        duplicate.  If the new goal adds work after ``ready`` already
+        fired, the completion cycle re-arms and ``ready()`` delivers
+        again once the new goal is met."""
         with self._lock:
             self._base_assignment = assignment
             self.assignment = self.jobs.merged_assignment(assignment)

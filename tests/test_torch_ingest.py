@@ -131,6 +131,26 @@ def test_failed_write_rolls_back_its_claim(monkeypatch):
     assert [(o, len(b)) for o, b in ing.salvage()] == [(0, 1024)]
 
 
+@pytest.mark.parametrize("stream", ARMS)
+def test_write_into_a_failed_ingest_is_a_no_op(stream, monkeypatch):
+    """A demoted layer poisons its ingest (``fail``); a straggling
+    fragment then queues no copy into buffers nobody reads and claims no
+    coverage."""
+    data = _payload(4096, seed=6)
+    ing = ting.ShardedLayerIngest(len(data), ["cpu"], stream=stream)
+    ing.write(0, data[:1024])
+    ing.fail()
+    copies = []
+    if stream:
+        monkeypatch.setattr(ing._mover, "copy_to",
+                            lambda dst, src: copies.append(len(src)))
+    ing.write(1024, data[1024:])
+    assert copies == []
+    with pytest.raises(RuntimeError, match="ingest failed"):
+        ing.finalize(timeout=1)
+    assert [(o, len(b)) for o, b in ing.salvage()] == [(0, 1024)]
+
+
 def test_incomplete_finalize_raises():
     ing = ting.ShardedLayerIngest(100, ["cpu"])
     ing.write(0, b"x" * 50)
