@@ -1,0 +1,7 @@
+"""Phase ``integrity_digest_stamp`` per round, in ms (the port's sum over threads)."""
+
+from . import phase_ms
+
+
+def read(run):
+    return phase_ms(run, "integrity_digest_stamp")
