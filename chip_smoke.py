@@ -2745,6 +2745,7 @@ def phase_fabric(cfg, args, fa, fab, prompt, raw_ttd_s):
           f"pod ids {summary['tokens']} != phase 3's {fab['tokens']}")
     phases = out["counts"]["phases"]
     up = phases.get("fabric_upload", {"ms": 0.0, "n": 0})
+    busy_ms = phases.get("fabric_upload_busy", {}).get("ms", 0.0)
     upload_bytes = out["counts"]["counters"].get("fabric.upload_bytes", 0)
     raw = dict(
         ttd_s=summary["ttd_s"], ttd_tcp_round_s=raw_ttd_s,
@@ -2752,7 +2753,8 @@ def phase_fabric(cfg, args, fa, fab, prompt, raw_ttd_s):
         ttft_s=summary.get("ttft_s"),
         upload_bytes=upload_bytes, uploads=up["n"],
         upload_ms_summed=up["ms"],  # concurrent uploads overlap
-        upload_gbps_per_upload=upload_bytes / max(up["ms"], 1e-9) / 1e6,
+        upload_busy_ms=busy_ms,  # the time any upload ran
+        upload_gbps_while_busy=upload_bytes / max(busy_ms, 1e-9) / 1e6,
         upload_gbps_over_ttd=upload_bytes / summary["ttd_s"] / 1e9,
         finalize_splice_ms=phases.get("splice", {}).get("ms"),
         finalize_window_ms=phases.get("collective", {}).get("ms"),

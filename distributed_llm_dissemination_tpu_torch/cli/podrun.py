@@ -48,6 +48,7 @@ from ..runtime import (
 )
 from ..transport.inmem import InmemTransport
 from ..utils import logging as ulog
+from ..utils import trace as utrace
 
 _LEADERS = {
     0: LeaderNode,
@@ -114,46 +115,54 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
     before any node closes."""
     if conf.mesh is None:
         raise SystemExit("podrun needs a Mesh section in the config")
-    import torch
-
-    from ..parallel.fabric import FabricPlane
-    from ..parallel.mesh import device_slots, fabric_placement, mesh_from_conf
-
-    n_slots = 1
-    for size in conf.mesh.axis_sizes:
-        n_slots *= int(size)
-    slot_devs = device_slots(n_slots, device)
-    mesh = mesh_from_conf(conf.mesh, slot_devs)
-    node_ids = [nc.id for nc in conf.nodes]
-    placement = fabric_placement(node_ids, conf.assignment, mesh,
-                                 conf.mesh.pipeline_axis)
-    # Each node's own device: its stage's first slot's.
-    node_dev = {n: placement.devices_for_node(n)[0].device for n in node_ids}
-    dev_name = (str(slot_devs[0]) if len(set(slot_devs)) == 1
-                else slot_devs[0].type)
-    fabric = FabricPlane()
-    ulog.log.info("pod fabric up", device=dev_name,
-                  mesh={n: s for n, s in zip(conf.mesh.axis_names,
-                                             conf.mesh.axis_sizes)},
-                  stages={str(n): s
-                          for n, s in placement.node_to_stage.items()},
-                  node_devices={str(n): str(d) for n, d in node_dev.items()})
-
-    transports = {
-        nc.id: InmemTransport(str(nc.id),
-                              addr_registry={i: str(i) for i in node_ids})
-        for nc in conf.nodes
-    }
-    leader_conf = cfg.get_leader_conf(conf)
-    from .main import boot_config  # same validation as the per-node CLI
-
-    boot_cfg = boot_config(boot or conf.model)
-    initial_layers = initial_layers or {}
-
+    # The round's steps, back to back on this thread up to
+    # ``on_delivered``, each a ``pod_*`` phase (and under a profiler a
+    # ``dld.pod_*`` span).
+    steps = utrace.Steps()
     started = set(threading.enumerate())
     leader = None
     receivers = []
+    transports: Dict[int, InmemTransport] = {}
     try:
+        steps.next("pod_build")
+        import torch
+
+        from ..parallel.fabric import FabricPlane
+        from ..parallel.mesh import (device_slots, fabric_placement,
+                                     mesh_from_conf)
+
+        n_slots = 1
+        for size in conf.mesh.axis_sizes:
+            n_slots *= int(size)
+        slot_devs = device_slots(n_slots, device)
+        mesh = mesh_from_conf(conf.mesh, slot_devs)
+        node_ids = [nc.id for nc in conf.nodes]
+        placement = fabric_placement(node_ids, conf.assignment, mesh,
+                                     conf.mesh.pipeline_axis)
+        # Each node's own device: its stage's first slot's.
+        node_dev = {n: placement.devices_for_node(n)[0].device
+                    for n in node_ids}
+        dev_name = (str(slot_devs[0]) if len(set(slot_devs)) == 1
+                    else slot_devs[0].type)
+        fabric = FabricPlane()
+        ulog.log.info("pod fabric up", device=dev_name,
+                      mesh={n: s for n, s in zip(conf.mesh.axis_names,
+                                                 conf.mesh.axis_sizes)},
+                      stages={str(n): s
+                              for n, s in placement.node_to_stage.items()},
+                      node_devices={str(n): str(d)
+                                    for n, d in node_dev.items()})
+
+        registry = {i: str(i) for i in node_ids}
+        transports.update((nc.id, InmemTransport(str(nc.id),
+                                                 addr_registry=registry))
+                          for nc in conf.nodes)
+        leader_conf = cfg.get_leader_conf(conf)
+        from .main import boot_config  # same validation as the per-node CLI
+
+        boot_cfg = boot_config(boot or conf.model)
+        initial_layers = initial_layers or {}
+
         for nc in conf.nodes:
             if nc.id in initial_layers:
                 layers = initial_layers[nc.id]
@@ -185,19 +194,22 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
                     boot_cfg=boot_cfg if assigned else None,
                     boot_codec=conf.model_codec,
                 ))
+        steps.next("pod_announce")
         for r in receivers:
             r.announce()
+        steps.next("pod_start")
         leader.start_distribution().get(timeout=timeout)
+        steps.next("pod_deliver")
         t0 = time.monotonic()
         leader.ready().get(timeout=timeout)
         ttd = time.monotonic() - t0
+        steps.next("pod_boot")
         ulog.log.info("Time to deliver", seconds=round(ttd, 6))
         print(f"Time to deliver: {ttd:.6f}s", flush=True)
         # Program reuse + phase attribution for THIS dissemination,
         # sampled at ready (before any boot).
         from ..parallel import plan_cache
         from ..utils import telemetry as utelemetry
-        from ..utils import trace as utrace
 
         plan_cache.log_stats()
         tel_snap = utelemetry.snapshot()
@@ -223,6 +235,7 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
             # one pipelined model from the landed weights (pp_serve).
             from ..runtime.pp_serve import assemble_pp_params, pod_forward
 
+            steps.next("pod_assemble")
             # The pod is its booted stages: the head comes from the stage
             # it landed on, never from a seeder's host copy.
             results = {r.node.my_id: r.boot_result for r in receivers}
@@ -230,6 +243,7 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
                       if r.node.my_id in conf.assignment}
             assembled = assemble_pp_params(boot_cfg, placement, results,
                                            stores, conf.model_codec)
+            steps.next("pod_forward")
             tokens = None
             if prompt is not None and assembled is not None:
                 tokens = torch.as_tensor(prompt, dtype=torch.long).reshape(
@@ -244,6 +258,7 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
             if served is not None and gen > 0:
                 from ..runtime.pp_serve import pod_decode
 
+                steps.next("pod_decode")
                 dec = pod_decode(boot_cfg, placement, results, stores,
                                  max_new=gen, prompt=tokens,
                                  codec=conf.model_codec,
@@ -254,6 +269,7 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
                     summary["tokens"] = [int(t) for t in toks[0].tolist()]
                     print(f"Pod decoded {toks.shape[1]} tokens: "
                           f"{summary['tokens']}", flush=True)
+        steps.close()
         if on_delivered is not None:
             on_delivered(leader, receivers, placement)
         if report:
@@ -268,6 +284,7 @@ def run_pod(conf: cfg.Config, mode: int = 3, boot: str = "",
         print(json.dumps(summary), flush=True)
         return summary
     finally:
+        steps.close()
         if leader is not None:
             leader.close()
         for r in receivers:

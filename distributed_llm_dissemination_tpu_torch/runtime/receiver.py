@@ -2821,14 +2821,10 @@ class ReceiverNode:
             rec = precompile_boot(
                 self.boot_cfg, blob_ids, device=self.device,
                 codec=self.boot_codec)
-            # Compile-overlap accounting: the whole warmup counts into
-            # the precompile bucket; the run overlapped the wire exactly
-            # when it finished before startup arrived.
+            # The run overlapped the wire exactly when it finished
+            # before startup arrived.
             dt = _time.monotonic() - t0
             overlapped = not self._startup_seen.is_set()
-            trace.add_phase("boot_precompile", dt)
-            if overlapped:
-                trace.add_phase("boot_precompile_in_wire", dt)
             with self._lock:
                 self.precompile_records.append((rec, overlapped))
             log.info("boot programs precompiled during dissemination",

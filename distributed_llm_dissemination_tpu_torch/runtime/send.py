@@ -395,6 +395,8 @@ class _FabricUploadCache:
     failed upload is memoized on the record so k plans do not re-read a
     multi-GiB layer k times just to fail the same allocation again."""
 
+    _busy = trace.Busy("fabric_upload_busy")  # every cache's uploads
+
     def __init__(self):
         self.budget = int(os.environ.get("FABRIC_UPLOAD_CACHE_BYTES",
                                          4 << 30))
@@ -412,18 +414,20 @@ class _FabricUploadCache:
     def _upload(data, device):
         """Host bytes -> a new 1-D uint8 tensor on ``device`` (the one seam
         the tests count and break).  Timed into the ``fabric_upload``
-        phase, its bytes counted on ``fabric.upload_bytes``."""
-        import time
-
+        phase (summed over threads) and ``fabric_upload_busy`` (the time
+        any upload ran); its bytes counted on ``fabric.upload_bytes``,
+        and on ``fabric.upload_pageable_bytes`` where the host tensor the
+        copy reads is not pinned."""
         import torch
 
         if isinstance(data, bytes):
             data = bytearray(data)
-        t0 = time.monotonic()
-        out = torch.frombuffer(data, dtype=torch.uint8).to(
-            resolve_device(device), copy=True)
-        trace.add_phase("fabric_upload", time.monotonic() - t0)
+        with _FabricUploadCache._busy, trace.phase("fabric_upload"):
+            src = torch.frombuffer(data, dtype=torch.uint8)
+            out = src.to(resolve_device(device), copy=True)
         trace.count("fabric.upload_bytes", out.numel())
+        if not src.is_pinned():
+            trace.count("fabric.upload_pageable_bytes", src.numel())
         return out
 
     def get_or_put(self, layer, layer_id, device):

@@ -291,16 +291,17 @@ def digest_layer_src(src) -> Optional[str]:
     when the bytes aren't locally readable (CLIENT-held layers — the
     external client's bytes are outside this process).  Disk layers
     digest by streaming the file range; HBM-only layers materialize their
-    one cached host copy first (``ensure_host_bytes``).  The time spent
-    is summed into the ``integrity_digest_stamp`` phase (holders digest
-    their layers this way to announce and stamp them)."""
+    one cached host copy first (``ensure_host_bytes``).  Holders digest
+    their layers this way to announce and stamp them: each hash is timed
+    into the ``integrity_digest_stamp`` phase, and the bytes of each
+    layer hashed are counted on ``integrity.digest_stamp_bytes``."""
     from . import trace
 
-    t0 = time.monotonic()
-    try:
-        return _digest_layer_src(src)
-    finally:
-        trace.add_phase("integrity_digest_stamp", time.monotonic() - t0)
+    with trace.phase("integrity_digest_stamp"):
+        digest = _digest_layer_src(src)
+    if digest is not None:
+        trace.count("integrity.digest_stamp_bytes", src.data_size)
+    return digest
 
 
 def _digest_layer_src(src) -> Optional[str]:

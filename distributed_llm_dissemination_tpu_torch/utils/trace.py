@@ -7,14 +7,47 @@ standardizes that idiom: a context manager that logs completion with a
 slice.  Zero infrastructure — the logs stay the single source of truth,
 merged across hosts by ``cli/collect_logs.py`` exactly like the
 reference's jq pipeline.
+
+Under ``torch.profiler`` the same spans and phases also land in the
+profiler's trace, on the device activity's clock: each is entered as
+``record_function(f"dld.{name}")`` on a thread the profiler records, so
+one name runs from the trace to the phase totals.  With no profiler
+running that costs one check per block and nothing more.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
+import threading
 import time
 
 from .logging import log
+
+
+_profiler_enabled = None  # torch's per-thread check, once torch is loaded
+
+
+def _annotation(name: str):
+    """``torch.profiler.record_function(f"dld.{name}")``, entered, when a
+    profiler records the calling thread; else None.  Never imports
+    torch: with torch not loaded no profiler can be running."""
+    global _profiler_enabled
+    if _profiler_enabled is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return None
+        _profiler_enabled = torch._C._autograd._profiler_enabled
+    if not _profiler_enabled():
+        return None
+    rf = sys.modules["torch"].profiler.record_function(f"dld.{name}")
+    rf.__enter__()
+    return rf
+
+
+def _close(rf) -> None:
+    if rf is not None:
+        rf.__exit__(None, None, None)
 
 
 @contextlib.contextmanager
@@ -28,6 +61,7 @@ def span(name: str, **fields):
     The record is logged even when the block raises (with ``error`` set),
     so traces show failed work instead of omitting it.
     """
+    rf = _annotation(name)
     t0 = time.monotonic()
     try:
         yield
@@ -38,6 +72,8 @@ def span(name: str, **fields):
     else:
         log.info(name, duration_ms=round((time.monotonic() - t0) * 1000, 3),
                  **fields)
+    finally:
+        _close(rf)
 
 
 # ----------------------------------------------------------- phase markers
@@ -61,12 +97,8 @@ def span(name: str, **fields):
 # MetricsReportMsg / RUN_REPORT.  ``reset_run`` is re-exported here for
 # writers that already import ``trace``.
 
-# TTFT buckets (the boot pipeline): writers in
-# ``runtime/receiver.py`` and ``runtime/stream_boot.py``; the
-# ``cli/ttd_matrix.py`` physical row renders them as the TTFT breakdown.
-# - ``boot_precompile``          hint-time XLA compile seconds (total)
-# - ``boot_precompile_in_wire``  the subset that finished BEFORE startup
-#                                — compile-overlap-achieved
+# TTFT buckets (the boot pipeline): written by
+# ``runtime/stream_boot.py``; ``chip_smoke.py`` reports the first.
 # - ``boot_stream_stage``        per-blob streamed decode/upload seconds
 # - ``boot_stream_in_wire``      the subset that ran before startup —
 #                                stage-overlap-achieved
@@ -82,12 +114,61 @@ def add_phase(name: str, seconds: float) -> None:
 @contextlib.contextmanager
 def phase(name: str):
     """Time a block into the named phase bucket (recorded even when the
-    block raises — failed work is still attributable work)."""
+    block raises — failed work is still attributable work); under a
+    profiler the block is also the span ``dld.<name>``."""
+    rf = _annotation(name)
     t0 = time.monotonic()
     try:
         yield
     finally:
         add_phase(name, time.monotonic() - t0)
+        _close(rf)
+
+
+class Steps:
+    """Consecutive phases of one thread with no time between them:
+    ``next(name)`` ends the open phase and opens ``name``, ``close()``
+    ends the last (a no-op once closed)."""
+
+    def __init__(self):
+        self._open = None
+
+    def next(self, name: str) -> None:
+        self.close()
+        self._open = phase(name)
+        self._open.__enter__()
+
+    def close(self) -> None:
+        cm, self._open = self._open, None
+        if cm is not None:
+            cm.__exit__(None, None, None)
+
+
+class Busy:
+    """The union of the blocks run under it, on any thread, timed into
+    the phase bucket ``name``: the first block to open starts the clock,
+    the last to close adds the time since.  Where ``phase`` sums thread
+    time, concurrent blocks here count once."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._lock = threading.Lock()
+        self._open = 0
+        self._since = 0.0
+
+    def __enter__(self) -> "Busy":
+        with self._lock:
+            if self._open == 0:
+                self._since = time.monotonic()
+            self._open += 1
+        return self
+
+    def __exit__(self, *exc) -> None:
+        with self._lock:
+            self._open -= 1
+            dt = time.monotonic() - self._since if self._open == 0 else None
+        if dt is not None:
+            add_phase(self.name, dt)
 
 
 def phase_totals() -> dict:
