@@ -912,10 +912,12 @@ class ReceiverNode:
 
     def _announce_digests(self) -> dict:
         """Self-describing digests (``integrity.layer_digest``) of this
-        node's held full layers, cached (a
-        re-announce must not re-hash gigabytes).  Runs PRE-TIMER for
-        seeders (announce precedes the leader's start), so the hash cost
-        never lands inside TTD."""
+        node's held full layers, cached (a re-announce must not re-hash
+        gigabytes).  The layers not yet cached are hashed together by
+        ``integrity.digest_layer_srcs``, concurrently where they are
+        large enough.  Seeders announce before the leader starts, so the
+        hash lands outside TTD but inside a fresh replica's time to
+        serve."""
         if not integrity.digests_enabled():
             return {}
         with self._lock:
@@ -930,8 +932,8 @@ class ReceiverNode:
             todo = [(lid, src) for lid, src in self.layers.items()
                     if lid not in self._own_digests
                     and not src.meta.shard and not src.meta.codec]
-        for lid, src in todo:
-            d = integrity.digest_layer_src(src)
+        digests = integrity.digest_layer_srcs(src for _, src in todo)
+        for (lid, _), d in zip(todo, digests):
             if d is not None:
                 self._own_digests[lid] = d
                 self.content_store.index(lid, d)

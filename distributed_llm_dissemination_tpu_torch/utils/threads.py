@@ -16,6 +16,10 @@ comes from now:
   SEPARATE pools on purpose: an in-process loopback test can otherwise
   fill every slot with sends blocked on a receiver that needs a slot
   to drain them — a classic one-pool deadlock.
+- :func:`digest_pool` — the process-wide pool the holders' digest
+  stamp hashes its layers on (``utils/integrity.digest_layer_srcs``),
+  one worker per CPU the process may run on: hashing is bound by the
+  host's memory bandwidth, not by one core.
 - :func:`census` — live thread counts bucketed by plane (data /
   control / other) from thread NAMES, surfaced as ``threads_*`` gauges
   in metric reports and the run report (docs/observability.md).  The
@@ -46,7 +50,8 @@ DEFAULT_POOL_SIZE = max(2, int(os.environ.get("DLD_DATA_THREADS", "8")))
 # The data plane's names carry a "torch-" prefix the JAX package's do
 # not: where both packages run in one process (mixed-cluster tests), each
 # census and each pool ceiling counts only its own package's pools.
-DATA_PREFIXES = ("torch-data-rx", "torch-data-tx", "torch-tcp-evloop")
+DATA_PREFIXES = ("torch-data-rx", "torch-data-tx", "torch-data-digest",
+                 "torch-tcp-evloop")
 CONTROL_PREFIXES = (
     "msgloop", "ctl-worker", "detector", "heartbeat-", "metrics-",
     "leader-lease", "lease-", "replicate-", "plan-watchdog",
@@ -168,6 +173,7 @@ class WorkerPool:
 
 _rx: Optional[WorkerPool] = None
 _tx: Optional[WorkerPool] = None
+_digest: Optional[WorkerPool] = None
 _pools_lock = threading.Lock()
 
 
@@ -191,12 +197,32 @@ def tx_pool() -> WorkerPool:
         return _tx
 
 
+def usable_cpus() -> int:
+    """The CPUs this process may run on: its affinity mask, or the
+    machine's count where the platform has no mask."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        return os.cpu_count() or 1
+
+
+def digest_pool() -> WorkerPool:
+    """The process-wide digest pool, one worker per usable CPU.  Its
+    workers spawn as tasks queue, so hashing n layers takes
+    ``min(n, usable_cpus())`` of them."""
+    global _digest
+    with _pools_lock:
+        if _digest is None:
+            _digest = WorkerPool(usable_cpus(), "torch-data-digest")
+        return _digest
+
+
 def data_thread_ceiling() -> int:
     """The hard ceiling on data-plane threads this process can reach:
-    both pools' worker budgets plus one readiness-loop thread.  The
-    dual-backend ceiling test asserts live data threads never exceed
-    this, whatever the connection count."""
-    return 2 * DEFAULT_POOL_SIZE + 1
+    the socket pools' worker budgets, one readiness-loop thread and the
+    digest pool's workers.  Live data threads never exceed this,
+    whatever the connection or layer count."""
+    return 2 * DEFAULT_POOL_SIZE + 1 + usable_cpus()
 
 
 def census() -> Dict[str, int]:

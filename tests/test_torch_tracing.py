@@ -4,11 +4,14 @@
 ``dld.<name>`` annotations when a profiler records the calling thread,
 and touch nothing of the profiler otherwise.  The fabric sender times the
 union of its concurrent uploads and counts their pageable bytes, the
-digest stamp counts the bytes it hashed, and ``cli.podrun.run_pod``
-splits a round into ``pod_*`` phases that cover it back to back.
+digest stamp counts the bytes it hashed, hashes a large holding's layers
+on the digest pool with every digest as the serial one, and times the
+union of its hashes; ``cli.podrun.run_pod`` splits a round into
+``pod_*`` phases that cover it back to back.
 """
 
 import json
+import random
 import sys
 import threading
 import time
@@ -34,7 +37,12 @@ from distributed_llm_dissemination_tpu_torch.transport import (
     InmemTransport,
     reset_registry,
 )
-from distributed_llm_dissemination_tpu_torch.utils import telemetry, trace
+from distributed_llm_dissemination_tpu_torch.utils import (
+    integrity,
+    telemetry,
+    threads,
+    trace,
+)
 
 POD_STEPS = ("pod_build", "pod_announce", "pod_start", "pod_deliver",
              "pod_boot", "pod_assemble", "pod_forward")
@@ -190,6 +198,180 @@ def test_digest_stamp_counts_the_bytes_it_hashed(tmp_path):
     assert sorted(digests) == [0, 1, 2]
     assert trace.counter_totals()["integrity.digest_stamp_bytes"] == (
         1000 + 3000 + 4096)
+
+
+GATE = integrity.POOLED_STAMP_MIN_BYTES
+POOLED = "integrity.digest_stamp_pooled_bytes"
+
+
+@pytest.fixture
+def small_gate(monkeypatch):
+    """A 1 MiB gate, so that a pooled holding is a few MiB: the pool's
+    tests then take little of the host's memory bandwidth from the
+    tests beside them."""
+    monkeypatch.setattr(integrity, "POOLED_STAMP_MIN_BYTES", 1 << 20)
+    return 1 << 20
+
+
+def _holder(layers):
+    node = Node(1, 0, InmemTransport("1", addr_registry={0: "0", 1: "1"}))
+    return ReceiverNode(node, layers)
+
+
+def _announce(layers):
+    """The holder's announce digests, the call's wall ms, the counters
+    and phases it left."""
+    receiver = _holder(layers)
+    try:
+        t0 = time.monotonic()
+        digests = receiver._announce_digests()
+        wall_ms = (time.monotonic() - t0) * 1000
+    finally:
+        receiver.close()
+    return digests, wall_ms, trace.counter_totals(), trace.phase_totals()
+
+
+def _random_src(seed: int, size: int) -> LayerSrc:
+    return _src(random.Random(seed).randbytes(size))
+
+
+def _on_disk(path, data: bytes) -> LayerSrc:
+    path.write_bytes(data)
+    return LayerSrc(fp=str(path), offset=0, data_size=len(data),
+                    meta=LayerMeta(location=LayerLocation.DISK,
+                                   source_type=SourceType.DISK))
+
+
+@pytest.mark.parametrize("algo,mix,gate", [
+    ("xxh3", "memory", GATE), ("blake2b", "memory", 1 << 20),
+    ("xxh3", "mixed", 1 << 20)])
+def test_pooled_stamp_digests_are_the_serial_ones(algo, mix, gate, tmp_path,
+                                                  monkeypatch):
+    """A holding at the gate is hashed on the pool, each layer whole:
+    every digest is the serial ``layer_digest`` of its bytes, and every
+    readable byte is counted as pooled.  A CLIENT holding is left out."""
+    monkeypatch.setenv("DLD_DIGEST_ALGO", algo)
+    monkeypatch.setattr(integrity, "POOLED_STAMP_MIN_BYTES", gate)
+    size = gate // 4
+    layers = {i: _random_src(i, size) for i in range(4)}
+    want = {i: integrity.layer_digest(bytes(layers[i].inmem_data))
+            for i in range(4)}
+    if mix == "mixed":
+        disk = random.Random(9).randbytes(size)
+        layers[2] = _on_disk(tmp_path / "layer", disk)
+        want[2] = integrity.layer_digest(disk)
+        layers[4] = _src(b"\x03" * 500, LayerLocation.CLIENT)
+    digests, _, counters, phases = _announce(layers)
+    assert digests == want
+    assert counters[POOLED] == 4 * size
+    assert counters["integrity.digest_stamp_bytes"] == 4 * size
+    assert phases["integrity_digest_stamp"]["n"] == len(layers)
+    assert phases["integrity_digest_stamp_wait"]["n"] == 1
+
+
+def test_a_layer_whose_hash_fails_is_left_out_on_the_pool(small_gate,
+                                                         monkeypatch):
+    size = small_gate // 4
+    layers = {i: _random_src(i, size) for i in range(4)}
+    real = integrity._digest_layer_src
+
+    def failing(src):
+        if src is layers[1]:
+            raise OSError("read failed")
+        return real(src)
+
+    monkeypatch.setattr(integrity, "_digest_layer_src", failing)
+    digests, _, counters, _ = _announce(layers)
+    assert digests == {i: integrity.layer_digest(bytes(layers[i].inmem_data))
+                       for i in (0, 2, 3)}
+    assert counters[POOLED] == 3 * size
+
+
+@pytest.mark.parametrize("sizes", [(1000, 3000, 4096), (GATE,),
+                                   (GATE // 2 - 1, GATE // 2)])
+def test_a_holding_under_the_gate_is_hashed_inline(sizes, monkeypatch):
+    """Fewer than two layers, or fewer bytes than the gate, hash on the
+    caller's thread: nothing is pooled and the pool is not waited on."""
+    ran_on = set()
+    real = integrity._digest_layer_src
+
+    def spy(src):
+        ran_on.add(threading.current_thread().name)
+        return real(src)
+
+    monkeypatch.setattr(integrity, "_digest_layer_src", spy)
+    layers = {i: _src(bytes([i + 1]) * n) for i, n in enumerate(sizes)}
+    digests, _, counters, phases = _announce(layers)
+    assert digests == {i: integrity.layer_digest(bytes(src.inmem_data))
+                       for i, src in layers.items()}
+    assert counters[POOLED] == 0
+    assert "integrity_digest_stamp_wait" not in phases
+    assert ran_on == {threading.current_thread().name}
+
+
+def test_stamp_busy_is_the_union_of_the_pooled_hashes(small_gate):
+    """``integrity_digest_stamp_busy`` counts concurrent hashes once: no
+    more than the call's wall time, nor than the per-layer sum."""
+    layers = {i: _random_src(i, 8 * small_gate) for i in range(6)}
+    _, wall_ms, _, phases = _announce(layers)
+    busy = phases["integrity_digest_stamp_busy"]["ms"]
+    assert 0 < busy <= wall_ms
+    assert busy <= phases["integrity_digest_stamp"]["ms"] + 0.1
+
+
+@pytest.mark.timeout(60)
+def test_pooled_stamp_under_thread_switch_stress(small_gate):
+    """More layers than workers, with a thread switch every microsecond:
+    every digest lands in its own layer's slot, every byte is counted
+    once, and the busy union closes."""
+    n = 4 * threads.usable_cpus() + 3
+    size = -(-small_gate // n)
+    layers = {i: _random_src(i, size) for i in range(n)}
+    want = {i: integrity.layer_digest(bytes(src.inmem_data))
+            for i, src in layers.items()}
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        digests, _, counters, _ = _announce(layers)
+    finally:
+        sys.setswitchinterval(old)
+    assert digests == want
+    assert counters[POOLED] == counters[
+        "integrity.digest_stamp_bytes"] == n * size
+    assert integrity._stamp_busy._open == 0
+
+
+def test_a_second_announce_hashes_nothing(small_gate):
+    receiver = _holder({i: _random_src(i, small_gate // 4)
+                        for i in range(4)})
+    try:
+        first = receiver._announce_digests()
+        counters = trace.counter_totals()
+        again = receiver._announce_digests()
+    finally:
+        receiver.close()
+    assert again == first
+    assert trace.counter_totals() == counters
+
+
+def test_the_digest_pool_workers_are_in_the_census(small_gate,
+                                                   monkeypatch):
+    ran_on = set()
+    real = integrity._digest_layer_src
+
+    def spy(src):
+        ran_on.add(threading.current_thread().name)
+        return real(src)
+
+    monkeypatch.setattr(integrity, "_digest_layer_src", spy)
+    _announce({i: _random_src(i, small_gate // 4) for i in range(4)})
+    assert ran_on and all(n.startswith("torch-data-digest-")
+                          for n in ran_on)
+    workers = [t.name for t in threading.enumerate()
+               if t.name.startswith("torch-data-digest-")]
+    assert ran_on <= set(workers)
+    assert len(workers) <= threads.usable_cpus()
+    assert threads.census()["data"] >= len(workers)
 
 
 def _pipeline_conf(name="tiny"):
