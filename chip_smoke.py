@@ -2310,13 +2310,24 @@ def _plain_params(cfg, serde, dq, quant, kind, wire):
 
 
 def _same_params(a, b):
-    """Booted params ``a`` bit for bit against the reference ``b``."""
+    """Booted params ``a`` (layers per layer) bit for bit against the
+    reference ``b`` (layers stacked)."""
     import torch
 
     pairs = [(name, a[name], b[name]) for name in ("embed", "ln_f", "lm_head")]
-    pairs += [(name, t, b["layers"][name]) for name, t in a["layers"].items()]
+    pairs += [(f"{name}[{j}]", t, b["layers"][name][j])
+              for name, per_layer in a["layers"].items()
+              for j, t in enumerate(per_layer)]
     for name, x, y in pairs:
         check(torch.equal(_bits(x), _bits(y)), f"booted {name} differs")
+
+
+def _boot_device(res):
+    """The device a boot's params live on (a full boot's embedding, a
+    stage boot's first layer)."""
+    if res.kind == "full":
+        return res.params["embed"].device
+    return res.params["wq"][0].device
 
 
 def phase_codec(cfg, args, fa, fab, prompt, raw_ttd_s):
@@ -2674,7 +2685,7 @@ def phase_fabric(cfg, args, fa, fab, prompt, raw_ttd_s):
     def boots(receivers):
         return {r.node.my_id: {
             "kind": r.boot_result.kind, "layers": len(r.boot_result.layer_ids),
-            "device": str(next(iter(r.boot_result.params.values())).device),
+            "device": str(_boot_device(r.boot_result)),
             "via": r.boot_result.via}
             for r in receivers if r.node.my_id in (3, 4)}
 
@@ -3623,7 +3634,7 @@ def _dest_boots(receivers, dests=(3, 4)):
     """Each dest's boot as ``_fabric_checks`` reads it."""
     return {r.node.my_id: {
         "kind": r.boot_result.kind, "layers": len(r.boot_result.layer_ids),
-        "device": str(next(iter(r.boot_result.params.values())).device),
+        "device": str(_boot_device(r.boot_result)),
         "via": r.boot_result.via}
         for r in receivers if r.node.my_id in dests}
 
@@ -3729,13 +3740,14 @@ def cards4_pod(cfg, args, fa, dq, quant, serde, blobs, wire8, prompt,
             if r.node.my_id not in dests:
                 continue
             res = r.boot_result
-            for name, stacked in res.params.items():
-                check(str(stacked.device) in _cards_of(placement,
-                                                       r.node.my_id),
-                      f"dest {r.node.my_id}'s {name} on {stacked.device}")
+            for name, per_layer in res.params.items():
                 for j, lid in enumerate(res.layer_ids):
-                    check(torch.equal(_bits(stacked[j]), _bits(
-                              plain["layers"][name][lid]).to(stacked.device)),
+                    leaf = per_layer[j]
+                    check(str(leaf.device) in _cards_of(placement,
+                                                        r.node.my_id),
+                          f"dest {r.node.my_id}'s {name} on {leaf.device}")
+                    check(torch.equal(_bits(leaf), _bits(
+                              plain["layers"][name][lid]).to(leaf.device)),
                           f"dest {r.node.my_id} layer {lid} {name} != "
                           "the plain decode")
                     equal += 1
@@ -4829,7 +4841,8 @@ def phase_hf_f32(cfg, args, fa, fab, prompt, path):
     check(out["attention_plain"] == 0,
           f"{out['attention_plain']} plain attention calls in the f32 round")
     params = out["res"].params
-    check(all(t.dtype == torch.float32 for t in params["layers"].values()),
+    check(all(t.dtype == torch.float32
+              for per_layer in params["layers"].values() for t in per_layer),
           "the f32 model booted in another dtype")
     served = out["served"][0]
     parity = near_tie_ids(fa, params, prompt, hcfg, served)
@@ -4958,7 +4971,8 @@ def phase_hf_f16(cfg, args, fa, fab, prompt):
     check(out["attention_plain"] == 0,
           f"{out['attention_plain']} plain attention calls in the f16 round")
     params = out["res"].params
-    check(all(t.dtype == torch.float16 for t in params["layers"].values()),
+    check(all(t.dtype == torch.float16
+              for per_layer in params["layers"].values() for t in per_layer),
           "the f16 model booted in another dtype")
     parity = near_tie_ids(fa, params, prompt, hcfg, out["served"][0])
     emit("hf_f16", config=f"hf:<tmp>/{os.path.basename(path)}",
@@ -5094,7 +5108,8 @@ def moe_parity(fa, cfg, params, prompt, served):
           f"MoE greedy ids: kernel {kernel_ids} != plain {plain_ids} "
           f"(near-ties at {near_ties})")
     # The card against the CPU port (plain attention on the CPU).
-    cpu = {k: ({name: t.cpu() for name, t in v.items()}
+    cpu = {k: ({name: [t.cpu() for t in per_layer]
+                for name, per_layer in v.items()}
                if isinstance(v, dict) else v.cpu()) for k, v in params.items()}
     cpu_log = []
     with shared_routing(cpu_log):

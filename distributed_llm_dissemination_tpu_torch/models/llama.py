@@ -18,6 +18,12 @@ bf16 rounding, not bit for bit.  Every entry point takes an
 The JAX ``gqa_attention`` has no function of its own here: ``attend``
 over ``block_attention_ref`` is the plain attention.
 
+A booted model holds its layers per layer instead: each leaf name maps to
+a sequence of per-layer tensors, views of the landed blobs
+(``runtime/boot.py``).  Every reader takes both forms: layer ``i``'s
+leaf is ``layers[name][i]`` either way (``layer_slice``), and
+``n_layers_of`` gives the depth.
+
 ``init_params(cfg, seed)`` is the JAX ``init_params(cfg, key(seed))``
 bit for bit (bf16 configs): the same key splits (``model_keys``) and
 threefry draws (``models/prng.py``), one leaf at a time
@@ -29,17 +35,23 @@ routed mixture of SwiGLU experts with dense dispatch (``moe_ffn``), as in
 the JAX package: every expert computes and the routing weights, ties kept
 (``route_topk``), zero out the unrouted pairs.  The expert products are
 plain ``torch.einsum``; the JAX package runs them outside any kernel too.
+Each layer's expert FFN is the phase ``moe_ffn`` (a ``dld.moe_ffn`` span
+under a profiler); inside a ``MoeRows`` block it also tallies, on the
+device, the token-expert pairs the router picked and those the dense
+dispatch computed.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
 
 from ..ops import flash_attention
+from ..utils import trace
 from ..utils.device import resolve_device
 from . import prng
 
@@ -288,20 +300,67 @@ def route_topk(weights: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return weights / (weights.sum(-1, keepdim=True) + 1e-9)
 
 
+class MoeRows:
+    """Counts of the expert rows of the forwards run inside the block, on
+    the calling thread: ``routed`` token-expert pairs the router picked
+    (ties included), summed on each device with no host sync, and
+    ``computed`` pairs the expert products ran (every token for every
+    expert, under dense dispatch).  ``report()`` reads the device sums
+    once, so call it after the forward has synchronised; it adds both to
+    the counters ``moe.routed_rows`` and ``moe.computed_rows``."""
+
+    _current = threading.local()
+
+    def __init__(self):
+        self.routed: Dict[torch.device, torch.Tensor] = {}
+        self.computed = 0
+
+    def __enter__(self) -> "MoeRows":
+        self._outer = getattr(MoeRows._current, "rows", None)
+        MoeRows._current.rows = self
+        return self
+
+    def __exit__(self, *exc) -> None:
+        MoeRows._current.rows = self._outer
+
+    @classmethod
+    def tally(cls, weights: torch.Tensor) -> None:
+        """Add one layer's routing weights [b, s, e] to the open block."""
+        rows = getattr(cls._current, "rows", None)
+        if rows is None:
+            return
+        picked = (weights > 0).sum()
+        prev = rows.routed.get(weights.device)
+        rows.routed[weights.device] = picked if prev is None else prev + picked
+        rows.computed += weights.numel()
+
+    def report(self) -> int:
+        """Add the block's counts to the counters; returns the routed
+        rows."""
+        routed = sum(int(t.item()) for t in self.routed.values())
+        if self.computed:
+            trace.count("moe.routed_rows", routed)
+            trace.count("moe.computed_rows", self.computed)
+        return routed
+
+
 def moe_ffn(p: Dict[str, torch.Tensor], x: torch.Tensor,
             cfg: ModelConfig) -> torch.Tensor:
     """Top-k routed mixture of SwiGLU experts, dense dispatch.  The
     router product rounds in the model dtype before the f32 softmax; the
     routing weights are cast to the model dtype for the mixing product."""
-    xn = rms_norm(x, p["ln2"], cfg.norm_eps)
-    logits = (xn @ p["router"]).float()
-    weights = route_topk(torch.softmax(logits, dim=-1), cfg)
-    h1 = torch.einsum("bsd,edf->besf", xn, p["w1"])
-    gate = h1 * torch.sigmoid(h1)  # rounds like jax.nn.silu (dense_ffn)
-    up = torch.einsum("bsd,edf->besf", xn, p["w3"])
-    expert_out = torch.einsum("besf,efd->besd", gate * up, p["w2"])
-    mixed = torch.einsum("besd,bse->bsd", expert_out, weights.to(x.dtype))
-    return x + mixed
+    with trace.phase("moe_ffn"):
+        xn = rms_norm(x, p["ln2"], cfg.norm_eps)
+        logits = (xn @ p["router"]).float()
+        weights = route_topk(torch.softmax(logits, dim=-1), cfg)
+        MoeRows.tally(weights)
+        h1 = torch.einsum("bsd,edf->besf", xn, p["w1"])
+        gate = h1 * torch.sigmoid(h1)  # rounds like jax.nn.silu (dense_ffn)
+        up = torch.einsum("bsd,edf->besf", xn, p["w3"])
+        expert_out = torch.einsum("besf,efd->besd", gate * up, p["w2"])
+        mixed = torch.einsum("besd,bse->bsd", expert_out,
+                             weights.to(x.dtype))
+        return x + mixed
 
 
 def ffn(p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -316,10 +375,16 @@ def layer_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     return ffn(p, attention_block(p, x, cfg, attention), cfg)
 
 
-def layer_slice(stacked: Dict[str, torch.Tensor], i: int
-                ) -> Dict[str, torch.Tensor]:
-    """Layer ``i``'s leaves from the stacked layer dict (views)."""
-    return {name: a[i] for name, a in stacked.items()}
+def layer_slice(layers: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s leaves from a layer dict, stacked or per layer
+    (views)."""
+    return {name: a[i] for name, a in layers.items()}
+
+
+def n_layers_of(layers: Dict[str, Any]) -> int:
+    """The depth of a layer dict: the length of its leaves' leading axis
+    when stacked, of its per-layer sequences when booted."""
+    return len(next(iter(layers.values())))
 
 
 class _HeadF32(torch.autograd.Function):
@@ -363,17 +428,17 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             attention=None) -> torch.Tensor:
     """f32 logits [b, s, vocab] for [b, s] integer tokens."""
     x = params["embed"][tokens]
-    for i in range(params["layers"]["wq"].shape[0]):
+    for i in range(n_layers_of(params["layers"])):
         x = layer_apply(layer_slice(params["layers"], i), x, cfg, attention)
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     return lm_head_logits(x, params["lm_head"])
 
 
-def stage_forward(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
+def stage_forward(layers: Dict[str, Any], x: torch.Tensor,
                   cfg: ModelConfig, attention=None) -> torch.Tensor:
     """A pipeline stage's layers over activations x [b, s, d]."""
-    for i in range(stacked["wq"].shape[0]):
-        x = layer_apply(layer_slice(stacked, i), x, cfg, attention)
+    for i in range(n_layers_of(layers)):
+        x = layer_apply(layer_slice(layers, i), x, cfg, attention)
     return x
 
 

@@ -10,13 +10,20 @@ Two boot shapes, chosen by what the node holds:
 - **full**: every layer plus the head blob -- the whole model boots and
   produces logits (and, with ``generate_tokens``, serves);
 - **stage**: a contiguous slice of layers (a pipeline stage) -- its
-  stacked params run over dummy activations.
+  params run over dummy activations.
 
-Assembly prefers blobs already on the device (``LayerSrc.device_array``,
-a 1-D uint8 CUDA tensor), so the bytes never return to the host: a raw
-blob's leaves are dtype views of the wire bytes
-(``models/serde.decode_device``), an int8/int4 blob decodes through the
-dequant kernels (``ops/dequant.py``, one launch per blob).  The DLE1
+Both hold their layers per layer: ``params[name][j]`` is leaf ``name`` of
+the ``j``-th held layer, and nothing is stacked.  Assembly prefers blobs
+already on the device (``LayerSrc.device_array``, a 1-D uint8 CUDA
+tensor), so the bytes never return to the host: a raw blob's leaves are
+dtype views of the landed wire bytes (``models/serde.decode_device``), so
+a stage takes no device memory beyond its landed blobs; an int8/int4 blob
+decodes through the dequant kernels (``ops/dequant.py``, one launch and
+one decoded copy per blob).  Host-held blobs are decoded and stacked on
+the host and go up once per leaf, each layer a view of the upload.  The
+counters ``boot.stage_bytes`` and ``boot.stage_copied_bytes`` give the
+layer bytes a boot assembled and those it wrote to new device memory
+rather than viewed in place.  The DLE1
 layer of an entropy form has no device decode: it unwraps on the host and
 the base form goes back to the device for its kernel (the JAX package
 decodes such a blob wholly on the host).
@@ -63,7 +70,8 @@ class BootResult:
     activations: Any = None  # stage boots only
     tokens: Any = None  # full boots with generate_tokens > 0
     # The assembled params stay resident: the product of the
-    # dissemination (full: the whole dict; stage: the stacked layers).
+    # dissemination (full: the whole dict, its "layers" per layer; stage:
+    # the per-layer leaves, {name: [layer 0's, layer 1's, ...]}).
     params: Any = None
     via: str = ""  # how the layers were assembled (also logged)
 
@@ -102,7 +110,7 @@ def classify_held_blobs(cfg, held_ids) -> tuple:
     return layer_ids, full
 
 
-def _device_blob(src) -> Optional[torch.Tensor]:
+def device_blob(src) -> Optional[torch.Tensor]:
     """The layer's device-resident 1-D uint8 tensor, when ingest staged
     one."""
     arr = getattr(src, "device_array", None)
@@ -144,10 +152,24 @@ def _host_bytes(src):
     return src.inmem_data if src.inmem_data is not None else src.read_bytes()
 
 
+def _unstacked(leaves: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One blob's staged leaves without their length-1 axis (views)."""
+    return {name: a[0] for name, a in leaves.items()}
+
+
+def views_blob(leaves: Dict[str, torch.Tensor], blob) -> bool:
+    """Whether every leaf is a view of ``blob``'s memory: staged in place,
+    nothing written to new device memory."""
+    if blob is None:
+        return False
+    ptr = blob.untyped_storage().data_ptr()
+    return all(a.untyped_storage().data_ptr() == ptr for a in leaves.values())
+
+
 def stage_blob_leaves(cfg, blob_id: int, src, codec: str = "raw",
                       device=None) -> Dict[str, torch.Tensor]:
     """ONE blob's share of the boot: its decoded leaves on ``device``,
-    each with a leading length-1 axis so assembly is a per-leaf concat.
+    each with a leading length-1 axis (the boot takes entry 0, a view).
     The shared per-blob staging of the streaming stager and the boot's
     infill.  Device blobs decode on the device (``quant.device_decode_jit``:
     dtype views for raw, the dequant kernels for int8/int4) and are
@@ -156,7 +178,7 @@ def stage_blob_leaves(cfg, blob_id: int, src, codec: str = "raw",
     (``_unwrapped_on_device``); host blobs decode on the host and are
     copied to the device."""
     specs = tuple(serde.blob_specs(cfg, blob_id))
-    arr = _device_blob(src)
+    arr = device_blob(src)
     if arr is not None:
         donate = blob_donate_ok(src)
         if codec in quant.ENTROPY_CODECS:
@@ -186,7 +208,7 @@ def decode_head(cfg, src, codec: str = "raw", donate: bool = False,
     entropy form unwrapped on the host first, as ``stage_blob_leaves``
     does), else a host decode copied over.  ``donate``: release the
     record's device copy (its host copy serves later readers)."""
-    dev = _device_blob(src)
+    dev = device_blob(src)
     if dev is not None:
         if codec in quant.ENTROPY_CODECS:
             codec, dev = _unwrapped_on_device(codec, dev)
@@ -332,9 +354,9 @@ def boot_from_layers(
     ``layers``: the receiver's store after dissemination.  ``codec``: the
     transfer codec of the blobs.
     ``stager``: a ``runtime.stream_boot.StreamingBootStager`` that has been
-    staging blobs as they arrived; when it covers every layer blob,
-    assembly is one device-local concat per leaf -- bit-identical to the
-    bulk paths in any completion order.  ``attention``: None = the
+    staging blobs as they arrived; its per-layer leaves are the boot's as
+    they are, and the boot infills any blob it missed -- bit-identical to
+    the bulk paths in any completion order.  ``attention``: None = the
     block-attention kernel; ``block_attention_ref`` runs the plain
     version.  Returns a BootResult whose ``seconds`` is the time from
     blob assembly to the first forward's logits being ready on the
@@ -365,66 +387,77 @@ def boot_from_layers(
     layers = _normalized(cfg, layers,
                          [lid for lid in mixed if lid not in streamed])
 
-    # Assembly: streamed per-layer leaves splice with one concat per leaf;
-    # otherwise device blobs decode in place; otherwise host blobs decode
-    # on the host and go up once per leaf-stack.
-    dev_blobs = {lid: _device_blob(layers[lid]) for lid in held}
-    stacked = None
+    # Assembly, one entry of leaves per layer and no concatenation:
+    # streamed per-layer leaves as staged (infilling any the stager
+    # missed); otherwise device blobs decode blob by blob (raw: views in
+    # place); otherwise host blobs decode on the host and go up once per
+    # leaf.  ``in_place``: the layers whose leaves view their landed blob.
+    per_layer = None
+    in_place: Dict[int, bool] = {}
     via = ""
+
+    def staged(lid):
+        """The stager's per-blob staging, run here, noting whether the
+        leaves view the landed blob."""
+        blob = device_blob(layers[lid])
+        leaves = stage_blob_leaves(cfg, lid, layers[lid], codec=codec,
+                                   device=dev)
+        in_place[lid] = views_blob(leaves, blob)
+        return leaves
+
     if streamed:
         try:
             missing = [lid for lid in layer_ids if lid not in streamed]
-            for lid in missing:
-                # Infill: the stager missed this blob -- run the same
-                # per-blob staging here.
-                streamed[lid] = stage_blob_leaves(
-                    cfg, lid, layers[lid], codec=codec, device=dev)
-            stacked = {
-                name: torch.cat([streamed[lid][name] for lid in layer_ids])
-                for name, _ in serde.layer_param_specs(cfg)
-            }
+            in_place = {lid: stager.staged_in_place(lid) for lid in streamed}
+            for lid in missing:  # infill: blobs the stager missed
+                streamed[lid] = staged(lid)
+            per_layer = [_unstacked(streamed[lid]) for lid in layer_ids]
             for lid in held:
                 if lid in streamed and blob_donate_ok(layers[lid]):
                     layers[lid].device_array = None
-                    dev_blobs[lid] = None
             via = ("streamed per-layer" if not missing
                    else f"streamed per-layer (+{len(missing)} infilled)")
         except Exception as e:  # noqa: BLE001 -- bulk assembly still works
             trace.count("fallback.stream_assembly_bulk")
             log.warn("streamed assembly failed; bulk assembly instead",
                      err=repr(e))
-            stacked = None
+            per_layer = None
+            in_place = {}
             layers = _normalized(cfg, layers, [lid for lid in mixed
                                                if layers[lid].meta.codec])
-            dev_blobs = {lid: _device_blob(layers[lid]) for lid in held}
-    if stacked is None and all(dev_blobs[lid] is not None
-                               for lid in layer_ids):
+    if per_layer is None and all(device_blob(layers[lid]) is not None
+                                 for lid in layer_ids):
         donate = all(blob_donate_ok(layers[lid]) for lid in layer_ids)
-        stacked = quant.stacked_from_device(
-            cfg, [dev_blobs[lid] for lid in layer_ids], codec, donate=donate)
+        per_layer = [_unstacked(staged(lid)) for lid in layer_ids]
         via = ("device bitcast" if codec == "raw"
                else f"device {codec} dequant")
         if donate:
-            for lid in layer_ids:
-                layers[lid].device_array = None
-                dev_blobs[lid] = None
             via += " (donated)"
-    elif stacked is None:
+    elif per_layer is None:
         blobs = {lid: _host_bytes(layers[lid]) for lid in layer_ids}
         host = quant.stacked_from_blobs_host(cfg, blobs, layer_ids, codec)
-        stacked = {name: a.to(dev) for name, a in host.items()}
+        up = {name: a.to(dev) for name, a in host.items()}
+        per_layer = [{name: a[j] for name, a in up.items()}
+                     for j in range(len(layer_ids))]
         via = "host assembly"
+    layer_params = {name: [lp[name] for lp in per_layer]
+                    for name, _ in serde.layer_param_specs(cfg)}
+    trace.count("boot.stage_bytes",
+                sum(a.nbytes for lp in per_layer for a in lp.values()))
+    trace.count("boot.stage_copied_bytes",
+                sum(a.nbytes for lid, lp in zip(layer_ids, per_layer)
+                    if not in_place.get(lid) for a in lp.values()))
 
     if full:
         if head_id in streamed:
-            head = {name: a[0] for name, a in streamed[head_id].items()}
+            head = _unstacked(streamed[head_id])
         else:
             head = decode_head(cfg, layers[head_id], codec,
                                donate=blob_donate_ok(layers[head_id]),
                                device=dev)
         params = {
             "embed": head["embed"],
-            "layers": stacked,
+            "layers": layer_params,
             "ln_f": head["ln_f"],
             "lm_head": head["lm_head"],
         }
@@ -445,11 +478,11 @@ def boot_from_layers(
         return res
 
     x = torch.zeros((1, 16, cfg.d_model), dtype=cfg.dtype, device=dev)
-    acts = llama.stage_forward(stacked, x, cfg, attention)
+    acts = llama.stage_forward(layer_params, x, cfg, attention)
     synchronize(dev)
     dt = time.monotonic() - t0
     log.info("pipeline stage booted from disseminated layers", kind="stage",
              layers=len(layer_ids), via=via, ttft_ms=round(dt * 1000, 1),
              stream_wait_ms=round(stream_wait_s * 1000, 1))
     return BootResult("stage", dt, layer_ids, activations=acts,
-                      params=stacked, via=via)
+                      params=layer_params, via=via)

@@ -6,14 +6,16 @@ layer slice on that stage's slots and the per-node stage boot
 (``runtime/boot.py``) proves the slice usable.  Here the POD serves as one
 model:
 
-1. ``assemble_pp_params`` collects each stage's resident stacked params
-   (``BootResult.params``, already on the stage's slot device) in stage
-   order as per-layer views padded to the deepest stage -- no weight
-   byte moves -- and decodes the head leaves from whichever node
-   received the head blob.
+1. ``assemble_pp_params`` collects each stage's resident per-layer
+   params (``BootResult.params``, views of the blobs landed on the
+   stage's slot device) in stage order, padded to the deepest stage --
+   no weight byte moves -- and decodes the head leaves from whichever
+   node received the head blob.
 2. ``pod_forward`` runs ``models.sharded.build_pp_forward``: stage by
    stage, the hidden state handed on; ``pod_decode`` the KV-cached greedy
    loop (``build_pp_decode``).  UNEVEN contiguous stage slices serve.
+   For experts the forward's routed and computed rows are counted
+   (``models.llama.MoeRows``) and read after its synchronisation.
 
 The multi-controller form (``spmd_pod_forward``/``spmd_pod_decode``)
 runs in EVERY member process on a ``ServeMsg``: each process holds only
@@ -40,7 +42,7 @@ from ..utils.device import synchronize
 from ..utils.logging import log
 
 def _stage_order(cfg, placement, results) -> Optional[list]:
-    """Stage-ordered list of (node, stacked-params, depth) when the boots
+    """Stage-ordered list of (node, layer params, depth) when the boots
     form a full contiguous partition of the layers (uneven slices are
     fine); None (with a log) otherwise."""
     staged = {n: r for n, r in results.items()
@@ -57,14 +59,14 @@ def _stage_order(cfg, placement, results) -> Optional[list]:
             for n in by_stage]
 
 
-def _pad_stack(stacked: Dict[str, torch.Tensor], l_max: int) -> list:
-    """A stage's stacked leaves as ``l_max`` per-layer entries: layer i's
-    leaf views, then ``None`` past the stage's depth (the tail the counts
-    skip).  Views only: no weight byte moves."""
-    from ..models.llama import layer_slice
+def _pad_stack(layers: Dict[str, Any], l_max: int) -> list:
+    """A stage's leaves as ``l_max`` per-layer entries: layer i's leaves,
+    then ``None`` past the stage's depth (the tail the counts skip).
+    Views only: no weight byte moves."""
+    from ..models.llama import layer_slice, n_layers_of
 
-    depth = next(iter(stacked.values())).shape[0]
-    return ([layer_slice(stacked, i) for i in range(depth)]
+    depth = n_layers_of(layers)
+    return ([layer_slice(layers, i) for i in range(depth)]
             + [None] * (l_max - depth))
 
 
@@ -114,7 +116,7 @@ def assemble_pp_params(cfg, placement, results: Dict[int, Any],
         log.info("pod serve skipped: no node holds the head blob")
         return None
     l_max = max(depth for _, _, depth in order)
-    stages = [_pad_stack(stacked, l_max) for _, stacked, _ in order]
+    stages = [_pad_stack(layers, l_max) for _, layers, _ in order]
     counts = [depth for _, _, depth in order]
     return mesh, stages, counts, head
 
@@ -124,6 +126,7 @@ def pod_forward(cfg, placement, results, stores, tokens=None,
     """One pipelined forward across the pod's stages from the landed
     weights; returns (logits, seconds) or None when not servable.
     ``assembled``: a prior ``assemble_pp_params`` result to reuse."""
+    from ..models.llama import MoeRows
     from ..models.sharded import build_pp_forward
 
     if assembled is None:
@@ -137,9 +140,11 @@ def pod_forward(cfg, placement, results, stores, tokens=None,
         tokens = torch.zeros((1, 16), dtype=torch.long, device=dev)
     t0 = time.monotonic()
     fwd = build_pp_forward(cfg, mesh, placement.pipeline_axis, attention)
-    logits = fwd(stages, counts, head, tokens)
+    with MoeRows() as rows:
+        logits = fwd(stages, counts, head, tokens)
     synchronize(logits.device)
     dt = time.monotonic() - t0
+    rows.report()
     log.info("pod pipelined forward from staged weights",
              stages=mesh.shape[placement.pipeline_axis],
              seconds=round(dt, 3))
@@ -220,7 +225,7 @@ class StageLink:
         return t
 
 
-def _spmd_assemble(cfg, placement, members, my_node, stacked, store,
+def _spmd_assemble(cfg, placement, members, my_node, stage_params, store,
                    codec: str, member_counts=None):
     """Shared multi-controller assembly: this process's resident stage
     layers (views, no byte moves), its head leaves decoded from its own
@@ -229,7 +234,7 @@ def _spmd_assemble(cfg, placement, members, my_node, stacked, store,
     leader's ServeMsg; default an even n_layers/len(members), the JAX
     package's convention)."""
     from ..models import serde
-    from ..models.llama import layer_slice
+    from ..models.llama import layer_slice, n_layers_of
     from .boot import decode_head
 
     head_src = store.get(serde.head_blob_id(cfg))
@@ -243,42 +248,46 @@ def _spmd_assemble(cfg, placement, members, my_node, stacked, store,
         member_counts = [cfg.n_layers // len(members)] * len(members)
     stage = members.index(my_node)
     depth = int(member_counts[stage])
-    held = next(iter(stacked.values())).shape[0]
+    held = n_layers_of(stage_params)
     if depth != held:
         raise RuntimeError(f"stage {stage} serves {depth} layers but its "
                            f"boot holds {held}")
-    layers = [layer_slice(stacked, i) for i in range(depth)]
-    dev = next(iter(stacked.values())).device
+    layers = [layer_slice(stage_params, i) for i in range(depth)]
+    dev = layers[0]["wq"].device
     head = decode_head(cfg, head_src, codec, device=dev)
     ranks = [placement.devices_for_node(n)[0].process_index for n in members]
     return layers, head, StageLink(ranks, stage), dev
 
 
-def spmd_pod_forward(cfg, placement, members, my_node, stacked, store,
+def spmd_pod_forward(cfg, placement, members, my_node, stage_params, store,
                      codec: str = "raw", batch: int = 1, seq_len: int = 16,
                      member_counts=None, attention=None):
     """Multi-controller serving: called by EVERY member process on
-    ``ServeMsg``.  ``stacked`` is this process's resident stage params
+    ``ServeMsg``.  ``stage_params`` is this process's resident stage params
     (``BootResult.params``); ``store`` its layer store (holds the head
     blob).  Returns (logits, seconds) on members, None on non-members."""
+    from ..models.llama import MoeRows
     from ..models.sharded import build_stage_forward
 
     if my_node not in members:
         return None
     t0 = time.monotonic()
     layers, head, link, dev = _spmd_assemble(
-        cfg, placement, members, my_node, stacked, store, codec,
+        cfg, placement, members, my_node, stage_params, store, codec,
         member_counts)
     tokens = torch.zeros((batch, seq_len), dtype=torch.long, device=dev)
-    logits = build_stage_forward(cfg, link, attention)(layers, head, tokens)
+    with MoeRows() as rows:
+        logits = build_stage_forward(cfg, link, attention)(layers, head,
+                                                           tokens)
     synchronize(logits.device)
     dt = time.monotonic() - t0
+    rows.report()
     log.info("pod pipelined forward from staged weights", spmd=True,
              stages=len(members), seconds=round(dt, 3))
     return logits, dt
 
 
-def spmd_pod_decode(cfg, placement, members, my_node, stacked, store,
+def spmd_pod_decode(cfg, placement, members, my_node, stage_params, store,
                     max_new: int, codec: str = "raw", batch: int = 1,
                     prompt_len: int = 16, member_counts=None,
                     attention=None):
@@ -293,7 +302,7 @@ def spmd_pod_decode(cfg, placement, members, my_node, stacked, store,
         return None
     t0 = time.monotonic()
     layers, head, link, dev = _spmd_assemble(
-        cfg, placement, members, my_node, stacked, store, codec,
+        cfg, placement, members, my_node, stage_params, store, codec,
         member_counts)
     prompt = torch.zeros((batch, prompt_len), dtype=torch.long, device=dev)
     toks = build_stage_decode(cfg, link, max_new, attention)(layers, head,

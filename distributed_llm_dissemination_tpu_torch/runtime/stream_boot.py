@@ -10,10 +10,11 @@ share of the boot on one worker thread, ``boot.stage_blob_leaves``:
 - **host path**: the blob is decoded on the host and each leaf copied to
   the device, so the copy of layer k rides under the receive of k+1.
 
-``boot_from_layers`` then assembles the staged leaves with one
-device-local concat per leaf -- bit-identical to the bulk assembly in
-any completion order, since each blob stages independently and the
-concat is in layer-id order.  Leaves carry a leading length-1 axis.
+``boot_from_layers`` then takes the staged leaves as its per-layer params,
+in layer-id order, with no copy -- bit-identical to the bulk assembly in
+any completion order, since each blob stages independently.  Leaves carry
+a leading length-1 axis; ``staged_in_place`` says whether a blob's leaves
+view its landed bytes.
 
 The shard-gather half: ``submit_shard`` accepts one byte-range shard of
 a layer at a time, and when a layer's last shard arrives the worker
@@ -34,7 +35,8 @@ from ..models import serde
 from ..utils import trace
 from ..utils.device import resolve_device
 from ..utils.logging import log
-from .boot import stage_blob_leaves, verify_blob_digest
+from .boot import (device_blob, stage_blob_leaves, verify_blob_digest,
+                   views_blob)
 
 # Phase buckets (utils.trace): summed per-blob staging seconds, and the
 # subset that ran while the wire was still active (before startup).
@@ -78,6 +80,7 @@ class StreamingBootStager:
         self._lock = threading.Lock()
         self._done = threading.Condition(self._lock)
         self._staged: Dict[int, dict] = {}
+        self._in_place: Dict[int, bool] = {}  # staged as views of the blob
         # Shard-gather state: blob -> accumulated shard parts, and blob ->
         # the materialized full layer's wire bytes.
         self._shards: Dict[int, dict] = {}
@@ -117,12 +120,19 @@ class StreamingBootStager:
         with self._lock:
             self._submitted.discard(blob_id)
             self._staged.pop(blob_id, None)
+            self._in_place.pop(blob_id, None)
 
     def mark_startup(self) -> None:
         """Startup arrived: blobs staged from here on no longer overlap
         the wire (accounting only)."""
         with self._lock:
             self._startup_seen = True
+
+    def staged_in_place(self, blob_id: int) -> bool:
+        """Whether the staged leaves of ``blob_id`` are views of its
+        landed device bytes (False for copies, and for unstaged ids)."""
+        with self._lock:
+            return self._in_place.get(blob_id, False)
 
     @property
     def staged_count(self) -> int:
@@ -165,10 +175,10 @@ class StreamingBootStager:
                 self._gather_one(item[1])
                 continue
             blob_id, src = item
-            leaves = None
+            leaves, in_place = None, False
             t0 = time.monotonic()
             try:
-                leaves = self._stage_one(blob_id, src)
+                leaves, in_place = self._stage_one(blob_id, src)
             except Exception as e:  # noqa: BLE001 -- the boot infills it
                 trace.count("fallback.stream_stage_infill")
                 log.warn("streamed boot staging failed for blob; the boot "
@@ -181,6 +191,7 @@ class StreamingBootStager:
                     leaves = None
                 if leaves is not None:
                     self._staged[blob_id] = leaves
+                    self._in_place[blob_id] = in_place
                 in_wire = not self._startup_seen
                 self._pending -= 1
                 if self._pending == 0:
@@ -318,11 +329,14 @@ class StreamingBootStager:
         if out is None:
             trace.count("shard.gather_failed")
 
-    def _stage_one(self, blob_id: int, src) -> dict:
+    def _stage_one(self, blob_id: int, src) -> tuple:
         """One blob's staging -- ``boot.stage_blob_leaves`` verbatim, under
-        the blob's own wire codec when it names one."""
+        the blob's own wire codec when it names one: ``(leaves, whether
+        they view the landed blob)``."""
         verify_blob_digest(blob_id, src, self.digest_lookup,
                            self.digest_verified)
         codec = src.meta.codec or self.codec
-        return stage_blob_leaves(self.cfg, blob_id, src, codec=codec,
-                                 device=self.device)
+        blob = device_blob(src)  # before staging may release it
+        leaves = stage_blob_leaves(self.cfg, blob_id, src, codec=codec,
+                                   device=self.device)
+        return leaves, views_blob(leaves, blob)

@@ -107,7 +107,8 @@ def test_streamed_boot_matches_jax_boot(name, order):
     stager.close()
     assert res.kind == "full" and res.via == "streamed per-layer"
     for name_ in jres.params["layers"]:
-        np.testing.assert_array_equal(_bits(res.params["layers"][name_]),
+        np.testing.assert_array_equal(
+            _bits(torch.stack(res.params["layers"][name_])),
                                       _bits(jres.params["layers"][name_]))
     for name_ in ("embed", "ln_f", "lm_head"):
         np.testing.assert_array_equal(_bits(res.params[name_]),
@@ -157,7 +158,7 @@ def test_stage_boot_of_a_layer_slice():
     assert res.kind == "stage" and list(res.layer_ids) == [1, 2]
     assert tuple(res.activations.shape) == (1, 16, tcfg.d_model)
     assert res.tokens is None
-    assert tuple(res.params["wq"].shape[:1]) == (2,)
+    assert len(res.params["wq"]) == 2
 
 
 def test_digest_gate():

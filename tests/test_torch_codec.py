@@ -1111,5 +1111,7 @@ def test_boot_normalizes_only_what_the_stager_did_not_stage(monkeypatch):
     bulk = boot_from_layers(CFG, {lid: _device_held(_enc_blob(lid), "int8")
                                   for lid in ids}, device="cpu")
     assert sorted(normalized) == ids
-    for name, a in res.params["layers"].items():
-        assert torch.equal(a, bulk.params["layers"][name]), name
+    for name, per_layer in res.params["layers"].items():
+        other = bulk.params["layers"][name]
+        assert len(per_layer) == len(other), name
+        assert all(torch.equal(a, b) for a, b in zip(per_layer, other)), name

@@ -339,7 +339,7 @@ def test_hf_checkpoint_int8_round_boots_like_jax(hf_dir):
                                   _holdings(jtypes, wire), codec="int8")
     for k in serde.layer_param_specs(cfg):
         np.testing.assert_array_equal(
-            res.params["layers"][k[0]].numpy(),
+            torch.stack(res.params["layers"][k[0]]).numpy(),
             np.asarray(jres.params["layers"][k[0]]), err_msg=k[0])
     np.testing.assert_array_equal(res.params["lm_head"].numpy(),
                                   np.asarray(jres.params["lm_head"]))
@@ -523,7 +523,9 @@ def test_float16_fabricates_like_jax_and_boots(tmp_path):
     assert warm["compiled"], warm
     res = tboot.boot_from_layers(cfg, seed_layers, device="cpu")
     assert res.kind == "full"
-    assert all(t.dtype == torch.float16 for t in res.params["layers"].values())
+    assert all(t.dtype == torch.float16
+               for per_layer in res.params["layers"].values()
+               for t in per_layer)
     assert res.params["embed"].dtype == torch.float16
     jparams = jhf.params_from_dir(path)
     tokens = np.random.default_rng(5).integers(0, cfg.vocab, (2, 16))
@@ -563,7 +565,9 @@ def test_config_without_torch_dtype_boots_f32_like_jax(tmp_path):
     assert warm["compiled"], warm
     res = tboot.boot_from_layers(cfg, seed_layers, device="cpu")
     assert res.kind == "full"
-    assert all(t.dtype == torch.float32 for t in res.params["layers"].values())
+    assert all(t.dtype == torch.float32
+               for per_layer in res.params["layers"].values()
+               for t in per_layer)
     assert res.params["embed"].dtype == torch.float32
     jparams = jhf.params_from_dir(path)
     tokens = np.random.default_rng(7).integers(0, cfg.vocab, (2, 16))

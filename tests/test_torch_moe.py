@@ -314,7 +314,8 @@ def test_seeded_round_boots_and_serves_like_jax(codec, seeded):
                                       codec=codec)
         for name, _ in tserde.layer_param_specs(tcfg):
             np.testing.assert_array_equal(
-                res.params["layers"][name].view(torch.int16).numpy(),
+                torch.stack(res.params["layers"][name]).view(
+                    torch.int16).numpy(),
                 np.asarray(jres.params["layers"][name]).view(np.int16),
                 err_msg=name)
         err = np.abs(res.logits.float().numpy() - np.asarray(jres.logits))

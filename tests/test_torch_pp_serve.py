@@ -152,7 +152,7 @@ def test_two_stage_dissemination_then_pod_forward():
         logits, dt = out
         assert dt > 0
         _assert_logits(logits, _jax_logits("tiny", tokens))
-        # The boots' stacked leaves are served in place: no weight copy.
+        # The boots' per-layer leaves are served in place: no weight copy.
         assembled = tpp.assemble_pp_params(cfg, placement, results, stores)
         layer0 = assembled[1][0][0]["wq"]
         assert layer0.data_ptr() == results[1].params["wq"][0].data_ptr()

@@ -490,5 +490,5 @@ def test_quantized_round_boots_like_jax_from_the_same_wire_blobs(codec):
     # The booted weights are the JAX boot's, bit for bit.
     for name, _ in serde.layer_param_specs(CFG):
         np.testing.assert_array_equal(
-            _bits(res.params["layers"][name]),
+            _bits(torch.stack(res.params["layers"][name])),
             _bits(jres.params["layers"][name]), err_msg=name)

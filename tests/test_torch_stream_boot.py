@@ -107,8 +107,11 @@ def _bits(t):
 
 def _same_boot(a, b):
     assert torch.equal(a.logits, b.logits)
-    for name, leaf in a.params["layers"].items():
-        assert torch.equal(_bits(leaf), _bits(b.params["layers"][name])), name
+    for name, per_layer in a.params["layers"].items():
+        other = b.params["layers"][name]
+        assert len(per_layer) == len(other), name
+        for leaf, want in zip(per_layer, other):
+            assert torch.equal(_bits(leaf), _bits(want)), name
 
 
 # ---------------------------------------------------------- donated staging
