@@ -412,22 +412,32 @@ class _FabricUploadCache:
 
     @staticmethod
     def _upload(data, device):
-        """Host bytes -> a new 1-D uint8 tensor on ``device`` (the one seam
-        the tests count and break).  Timed into the ``fabric_upload``
-        phase (summed over threads) and ``fabric_upload_busy`` (the time
-        any upload ran); its bytes counted on ``fabric.upload_bytes``,
-        and on ``fabric.upload_pageable_bytes`` where the host tensor the
-        copy reads is not pinned."""
+        """Host bytes -> a new 1-D uint8 tensor on ``device``, landed (the
+        one seam the tests count and break).  Pageable bytes bound for a
+        CUDA card cross through the card's pinned chunk ring
+        (``_staged_copy``); a pinned source, or a CPU device, is one direct
+        copy.  Timed into the ``fabric_upload`` phase (summed over
+        threads) and ``fabric_upload_busy`` (the time any upload ran); its
+        bytes counted on ``fabric.upload_bytes``, on
+        ``fabric.upload_pageable_bytes`` where the host tensor the copy
+        reads is not pinned, and on ``fabric.upload_staged_bytes`` where
+        they went through the ring."""
         import torch
 
         if isinstance(data, bytes):
             data = bytearray(data)
         with _FabricUploadCache._busy, trace.phase("fabric_upload"):
+            dev = resolve_device(device)
             src = torch.frombuffer(data, dtype=torch.uint8)
-            out = src.to(resolve_device(device), copy=True)
+            pinned = src.is_pinned()
+            staged = dev.type == "cuda" and not pinned
+            out = (_staged_copy(src, dev) if staged
+                   else src.to(dev, copy=True))
         trace.count("fabric.upload_bytes", out.numel())
-        if not src.is_pinned():
+        if not pinned:
             trace.count("fabric.upload_pageable_bytes", src.numel())
+        if staged:
+            trace.count("fabric.upload_staged_bytes", src.numel())
         return out
 
     def get_or_put(self, layer, layer_id, device):
@@ -507,6 +517,53 @@ class _FabricUploadCache:
 
 
 _upload_cache = _FabricUploadCache()
+
+_movers: Dict[object, object] = {}  # device -> its WeightMover
+_movers_lock = threading.Lock()
+
+
+def _card_mover(dev):
+    """The process-wide ``parallel.mover.WeightMover`` of device ``dev``:
+    every seeder's uploads to one card share its pinned chunk ring and
+    side stream."""
+    from ..parallel.mover import WeightMover
+
+    with _movers_lock:
+        mover = _movers.get(dev)
+        if mover is None:
+            mover = _movers[dev] = WeightMover(dev)
+        return mover
+
+
+def _staged_copy(src, dev):
+    """Host bytes ``src`` (a 1-D uint8 CPU tensor) -> a new tensor on
+    ``dev``, landed, through ``dev``'s mover.  One writer's memcpy into the
+    ring, not the DMA out of it, sets a pinned ring's pace, so the bytes
+    are split into runs of whole chunks, at most one a digest-pool worker,
+    and the workers' memcpys feed the ring concurrently.  The caller only
+    waits: the pool's workers, one a usable CPU, are all the writers, and
+    every seeder's uploads share them.  (The caller must not be a digest
+    pool worker; uploads run on the message loop's handlers.)"""
+    import torch
+
+    from ..parallel.mover import CHUNK_BYTES
+
+    mover = _card_mover(dev)
+    pool = threads.digest_pool()
+    n = src.numel()
+    out = torch.empty(n, dtype=torch.uint8, device=dev)
+    host = src.numpy()
+    step = CHUNK_BYTES * -(-n // (CHUNK_BYTES * pool.size))
+    mover.order_after_current()
+    runs = [pool.submit(mover.copy_to, out[a : a + step], host[a : a + step])
+            for a in range(0, n, step)]
+    for run in runs:
+        run.wait()
+    for run in runs:
+        if run.error is not None:
+            raise run.error
+    mover.synchronize()
+    return out
 
 
 def _span_view(layer, off: int, size: int):

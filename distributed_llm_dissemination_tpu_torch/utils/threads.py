@@ -17,9 +17,11 @@ comes from now:
   fill every slot with sends blocked on a receiver that needs a slot
   to drain them — a classic one-pool deadlock.
 - :func:`digest_pool` — the process-wide pool the holders' digest
-  stamp hashes its layers on (``utils/integrity.digest_layer_srcs``),
-  one worker per CPU the process may run on: hashing is bound by the
-  host's memory bandwidth, not by one core.
+  stamp hashes its layers on (``utils/integrity.digest_layer_srcs``)
+  and the fabric sender copies pageable uploads into a card's pinned
+  ring on (``runtime/send._staged_copy``), one worker per CPU the
+  process may run on: hashing and copying are bound by the host's
+  memory bandwidth, not by one core.
 - :func:`census` — live thread counts bucketed by plane (data /
   control / other) from thread NAMES, surfaced as ``threads_*`` gauges
   in metric reports and the run report (docs/observability.md).  The
@@ -207,7 +209,8 @@ def usable_cpus() -> int:
 
 
 def digest_pool() -> WorkerPool:
-    """The process-wide digest pool, one worker per usable CPU.  Its
+    """The process-wide digest pool, one worker per usable CPU: the
+    digest stamp's hashes and the fabric sender's staging copies.  Its
     workers spawn as tasks queue, so hashing n layers takes
     ``min(n, usable_cpus())`` of them."""
     global _digest
